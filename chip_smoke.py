@@ -5,28 +5,46 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, drives the port's
-main path — single-device maximum-clique discovery — at full width, and
-prints where the time went.  Phases, one line each (plus detail):
+two paths — single-device maximum-clique discovery, and the co-workload
+path from the data pipeline through the float kernels — at full width,
+and prints where the time went.  Phases, one line each (plus detail):
 
 1. environment: the card's name and power limit, the kernels' build;
-2. each kernel against its plain version on the card, exact equality, at
-   ragged shapes and at the main-path shape, with its time, the plain
-   version's time and the least time the card could take (bound);
+2. each kernel against its plain version on the card at ragged shapes
+   (``masked_intersect`` and ``embedding_bag`` exact, ``segment_matmul``
+   within 1e-4, ``flash_attention`` within the reference tests' 2e-4 in
+   fp32 and 3e-2 in bf16, and per head within a relative error of 1e-4
+   and 1e-2); ``masked_intersect`` also at the main path's shape, with
+   its time, the plain version's time and the least time the card could
+   take (bound);
 3. the quickstart config and the spill probe on ``cuda`` and on ``cpu``:
    byte-identical answers and the reference's counters;
 4. the main path: ``planted_clique_graph(32768, 354000, 32, seed=0)`` with
    ``EngineConfig(k=3, batch=64, pool_capacity=16384)`` must find the
    planted 32-clique, and every kernel of the path must have launched;
 5. the main path once more under ``torch.profiler``: the device's idle
-   share of the wall time and the kernels that take the device time.
+   share of the wall time and the kernels that take the device time;
+6. the co-workload path: four batches each of a GraphSAGE 2-hop sample
+   (``NeighborSampler``) through ``segment_matmul``, Criteo-style sparse
+   ids (``RecsysStream``) through ``embedding_bag`` and a Llama-3-8B
+   attention layer's q/k/v over ``TokenStream`` tokens through
+   ``flash_attention``, from ``repro_torch.data.pipeline`` through
+   ``repro_torch.kernels.ops`` in fp32 and bf16; each result is held
+   against the plain version as in phase 2, and every kernel must have
+   launched once a batch in each dtype.  Then each kernel is timed on the
+   last batch's inputs, beside its plain version, one PyTorch library
+   call for the same function, and its bound.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (each kernel's fp32
+numbers, and its bf16 numbers under ``bf16`` where phase 6 runs both,
+each with its own launch count); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result line.  Without a CUDA device, or without the repository's
 ``src/repro_torch`` beside this file, it fails at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -60,6 +78,44 @@ MAIN_SHAPE = (64, 32768, 1024)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 POPC_PER_CLOCK_PER_SM = 16       # CUDA C++ Programming Guide, CC 9.0
+# H100 SXM dense peaks (NVIDIA data sheet): fp32 outside the tensor cores,
+# bf16 on the tensor cores
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+
+# the co-workload kernels: ragged sweeps (tests/test_kernels.py's among
+# them) before the full-width shape
+SEGMENT_RAGGED = ((64, 16, 8), (300, 50, 16), (1024, 128, 64), (1, 1, 1),
+                  (999, 77, 13), (5000, 3000, 256))             # (E, N, D)
+EMBEDDING_RAGGED = ((5, 37, 8, 9), (40, 1000, 32, 16), (1, 8, 128, 3),
+                    (3, 11, 7, 5), (26, 1000, 128, 333))        # (F, V, D, B)
+FLASH_RAGGED = ((2, 128, 32), (4, 256, 64), (1, 512, 16), (1, 1, 8),
+                (3, 100, 128), (2, 320, 256), (1, 64, 40),
+                (2, 96, 13))                                    # (H, S, D)
+# full width (PERF.md, "Cells"): a GraphSAGE 2-hop sample of the main
+# path's graph, Criteo (MLPerf DLRM-DCNv2) embedding tables, Llama-3-8B
+# attention
+SAGE = dict(batch_nodes=512, fanout=(25, 10), d_feat=256)
+DLRM = dict(n_sparse=26, n_dense=13, vocab=1_000_000, batch=8192)
+DLRM_DIM = 128
+LLAMA = dict(heads=32, kv_heads=8, seq=8192, head_dim=128, width=4096,
+             vocab=128_256)
+COWORK_STEPS = 4
+# the dtypes that phase 6 drives each kernel in (the DLRM table is fp32)
+COWORK_DTYPES = {"segment_matmul": ("fp32", "bf16"),
+                 "embedding_bag": ("fp32",),
+                 "flash_attention": ("fp32", "bf16")}
+# max |kernel - plain| allowed: segment sums differ only in the order of
+# their fp32 adds, the gather is a copy, attention as in
+# tests/test_kernels.py::test_flash_attention_kernel (rtol = atol)
+TOLERANCE = {"segment_matmul": {"fp32": 1e-4, "bf16": 1e-4},
+             "embedding_bag": {"fp32": 0.0, "bf16": 0.0},
+             "flash_attention": {"fp32": 2e-4, "bf16": 3e-2}}
+# attention also per head: ||kernel - plain||_F / ||plain||_F.  In long
+# causal rows the outputs are smaller than the 3e-2 above, so that limit
+# alone would pass a kernel that drops a k/v tile or misses a rescale;
+# rounding p to bf16 before the P·V product, as the kernel does, leaves
+# about 1e-3 of it
+FLASH_REL_TOLERANCE = {"fp32": 1e-4, "bf16": 1e-2}
 
 
 def fail(msg: str) -> None:
@@ -303,6 +359,293 @@ def phase_profile(comp, want) -> None:
         print(f"  {ms:10.3f} ms  {ms / res.steps:8.4f} ms/step  {name}")
 
 
+def torch_dtypes():
+    import torch
+    return {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def bound_ms(nbytes: float, flops: float, peak: str):
+    """Least time for one call: the bytes read once and written once over
+    the HBM rate, or the operations over the card's peak for their type."""
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * flops / PEAK_FLOPS[peak]
+    return max(bytes_ms, ops_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def errors(name: str, dt: str, got, want, what: str) -> dict:
+    """Max |got - want|, and for attention the largest relative error of
+    one head; fails beyond the kernel's tolerance (for attention
+    |got - want| <= tol + tol * |want|, as assert_allclose reads it)."""
+    import torch
+    if got.shape != want.shape or got.dtype != torch.float32:
+        fail(f"{name} {dt} {what}: got {got.dtype} {tuple(got.shape)}, "
+             f"want float32 {tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name} {dt} {what}: non-finite output")
+    diff = (got - want).abs()
+    tol = TOLERANCE[name][dt]
+    limit = tol + tol * want.abs() if name == "flash_attention" else tol
+    if bool((diff > limit).any()):
+        fail(f"{name} {dt} {what}: max abs err {float(diff.max())} beyond "
+             f"tolerance {tol}")
+    out = {"max_abs_err": float(diff.max()) if diff.numel() else 0.0}
+    if name == "flash_attention":
+        rel = float(((got - want).flatten(1).norm(dim=1)
+                     / want.flatten(1).norm(dim=1).clamp_min(1e-30)).max())
+        if rel > FLASH_REL_TOLERANCE[dt]:
+            fail(f"{name} {dt} {what}: relative err of a head {rel} beyond "
+                 f"{FLASH_REL_TOLERANCE[dt]}")
+        out["max_rel_err"] = rel
+    return out
+
+
+def fold(record: dict, errs: dict) -> None:
+    """Keep the larger of each error in ``record``."""
+    for key, err in errs.items():
+        record[key] = max(record.get(key, 0.0), err)
+
+
+def err_text(record: dict) -> str:
+    text = f"max abs err {record['max_abs_err']:.3g}"
+    if "max_rel_err" in record:
+        text += f", of a head relative {record['max_rel_err']:.3g}"
+    return text
+
+
+def sage_batch(sampler, step: int):
+    """One GraphSAGE sample on the card: node features, edge sources (for
+    the message gather) and destinations."""
+    import torch
+    sub = sampler.sample(step)
+    return (torch.from_numpy(sub.features).cuda(),
+            torch.from_numpy(sub.edge_src).cuda().long(),
+            torch.from_numpy(sub.edge_dst).cuda())
+
+
+def phase_coworkload_kernels() -> dict:
+    """Phase 2 for the co-workload kernels: ragged sweeps against the plain
+    versions.  Returns {name: {dtype: errors}}."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmul is on: the plain versions must run in full fp32")
+    rng = np.random.default_rng(1)
+    records = {name: {} for name in TOLERANCE}
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
+
+    for dt, dtype in torch_dtypes().items():
+        # segment_matmul: random destinations, some outside [0, N) (dropped)
+        rec = records["segment_matmul"][dt] = {}
+        for (e, n, d) in SEGMENT_RAGGED:
+            msg = normal(e, d).to(dtype)
+            dst = torch.from_numpy(rng.integers(-1, n + 1, e, dtype=np.int32)
+                                   ).cuda()
+            fold(rec, errors("segment_matmul", dt,
+                             ops.segment_matmul(msg, dst, n),
+                             ref.segment_matmul_ref(msg, dst, n),
+                             f"E={e} N={n} D={d}"))
+        # embedding_bag: ids in range, as the contract has them
+        rec = records["embedding_bag"][dt] = {}
+        for (f, v, d, b) in EMBEDDING_RAGGED:
+            table = normal(f, v, d).to(dtype)
+            ids = torch.from_numpy(rng.integers(0, v, (b, f), dtype=np.int32)
+                                   ).cuda()
+            fold(rec, errors("embedding_bag", dt,
+                             ops.embedding_bag(table, ids),
+                             ref.embedding_bag_ref(table, ids),
+                             f"F={f} V={v} D={d} B={b}"))
+        # flash_attention: causal and full, ragged S and D
+        rec = records["flash_attention"][dt] = {}
+        for (h, s, d) in FLASH_RAGGED:
+            q, k, v = (normal(h, s, d).to(dtype) for _ in range(3))
+            for causal in (True, False):
+                fold(rec, errors(
+                    "flash_attention", dt,
+                    ops.flash_attention(q, k, v, causal=causal),
+                    ref.flash_attention_ref(q, k, v, causal=causal),
+                    f"H={h} S={s} D={d} causal={causal}"))
+    for name, by_dtype in records.items():
+        for dt, rec in by_dtype.items():
+            print(f"[2 kernel] {name} {dt}: ragged shapes, {err_text(rec)}")
+    return records
+
+
+def phase_coworkload(graph, ragged: dict) -> dict:
+    """The co-workload path: batches from the ported pipeline through
+    ``repro_torch.kernels.ops`` on the card, each held against the plain
+    version; then each kernel timed on the last batch's inputs.  Returns
+    {name: {dtype: record}}, phase 2's errors folded in."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.data.pipeline import (NeighborSampler, RecsysStream,
+                                           TokenStream)
+    from repro_torch.kernels import embedding_bag, flash_attention, ops, \
+        ref, segment_matmul
+    from repro_torch.kernels.segment_matmul import edges_by_node
+
+    dtypes = torch_dtypes()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    sampler = NeighborSampler(graph, **SAGE, seed=0)
+    recsys = RecsysStream(**DLRM, seed=0)
+    tokens = TokenStream(vocab=LLAMA["vocab"], batch=1, seq=LLAMA["seq"],
+                         seed=0)
+    f, rows, d_emb = DLRM["n_sparse"], DLRM["vocab"], DLRM_DIM
+    table = torch.randn((f, rows, d_emb), generator=gen, device="cuda")
+    # a Llama-3-8B attention layer's token embedding and q/k/v projections
+    h, kvh, s, d, width = (LLAMA[x] for x in ("heads", "kv_heads", "seq",
+                                               "head_dim", "width"))
+    embed = torch.randn((LLAMA["vocab"], width), generator=gen, device="cuda")
+    wq, wk, wv = (torch.randn((width, heads * d), generator=gen,
+                              device="cuda") / math.sqrt(width)
+                  for heads in (h, kvh, kvh))
+
+    def heads_of(x, n_heads):           # [S, n*D] -> [H, S, D]
+        return x.view(s, n_heads, d).transpose(0, 1).repeat_interleave(
+            h // n_heads, dim=0)
+
+    kernels = {"segment_matmul": segment_matmul,
+               "embedding_bag": embedding_bag,
+               "flash_attention": flash_attention}
+    records = {name: {dt: dict(launches=0, batches=0, **ragged[name][dt])
+                      for dt in dts} for name, dts in COWORK_DTYPES.items()}
+    # host-clock split of the phase: batches made (numpy pipeline, copies
+    # to the card, gathers and projections there), kernel calls (wrappers
+    # included), plain-version checks
+    spent = {"pipeline": 0.0, "kernels": 0.0, "checks": 0.0}
+
+    @contextlib.contextmanager
+    def timed(part):
+        t = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        spent[part] += time.perf_counter() - t
+
+    def run(name, dt, kernel, plain):
+        rec, before = records[name][dt], kernels[name].launches
+        with timed("kernels"):
+            out = kernel()
+        rec["launches"] += kernels[name].launches - before
+        rec["batches"] += 1
+        with timed("checks"):
+            fold(rec, errors(name, dt, out, plain(), "co-workload batch"))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    for step in range(COWORK_STEPS):
+        with timed("pipeline"):
+            feats, src, dst = sage_batch(sampler, step)
+            msgs = {dt: feats.to(dtype)[src] for dt, dtype in dtypes.items()}
+        for dt, msg in msgs.items():
+            run("segment_matmul", dt,
+                lambda: ops.segment_matmul(msg, dst, sampler.n_pad),
+                lambda: ref.segment_matmul_ref(msg, dst, sampler.n_pad))
+        with timed("pipeline"):
+            ids = torch.from_numpy(recsys.batch_at(step)["sparse_ids"]
+                                   ).cuda()
+        run("embedding_bag", "fp32", lambda: ops.embedding_bag(table, ids),
+            lambda: ref.embedding_bag_ref(table, ids))
+        with timed("pipeline"):
+            tok = torch.from_numpy(tokens.batch_at(step)["tokens"][0]).cuda()
+            x = embed[tok.long()]
+            qkv = [heads_of(x @ wq, h), heads_of(x @ wk, kvh),
+                   heads_of(x @ wv, kvh)]
+            by_dtype = {dt: [t.to(dtype).contiguous() for t in qkv]
+                        for dt, dtype in dtypes.items()}
+        for dt, (q, k, v) in by_dtype.items():
+            run("flash_attention", dt, lambda: ops.flash_attention(q, k, v),
+                lambda: ref.flash_attention_ref(q, k, v))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    print(f"[6 coworkload] {COWORK_STEPS} steps in {wall_s:.2f}s: launches "
+          f"{launches} peak_mem="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
+    print(f"[6 coworkload] host seconds by part: "
+          f"{ {k: round(t, 3) for k, t in spent.items()} }")
+    for name, recs in records.items():
+        if launches[name] != sum(r["launches"] for r in recs.values()):
+            fail(f"{name} launched {launches[name]} times, "
+                 f"{[r['launches'] for r in recs.values()]} in its calls")
+        for dt, rec in recs.items():
+            if rec["launches"] != rec.pop("batches"):
+                fail(f"{name} {dt} launched {rec['launches']} times for "
+                     f"{COWORK_STEPS} batches")
+            print(f"[6 coworkload] {name} {dt}: {rec['launches']} launches, "
+                  f"{err_text(rec)} (phase 2 and phase 6)")
+    # the fp32 plain version is itself fp32: on the last batch's head where
+    # it and the kernel differ most, hold both against float64
+    q, k, v = by_dtype["fp32"]
+    got, want = ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v)
+    i = int((got - want).abs().flatten(1).max(1).values.argmax())
+    scores = (q[i].double() @ k[i].double().T) / math.sqrt(d)
+    scores.masked_fill_(torch.ones((s, s), dtype=torch.bool,
+                                   device="cuda").triu_(1), float("-inf"))
+    exact = torch.softmax(scores, dim=-1) @ v[i].double()
+    del scores
+    for what, out in (("kernel", got[i]), ("plain version", want[i])):
+        diff = (out.double() - exact).abs()
+        row = int(diff.max(1).values.argmax())
+        top = float(exact[row].abs().max())
+        print(f"[6 coworkload] flash_attention fp32 head {i} against "
+              f"float64: {what} max abs err {float(diff.max()):.3g} (row "
+              f"{row}, where max |out| is {top:.3g})")
+    del got, want, exact
+
+    # times at full width, on the last batch's inputs; these launches come
+    # after the counts were read and are not the path's
+    def time_call(name, dt, what, kernel, plain, library, bound):
+        rec = records[name][dt]
+        rec.update(ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3, 1),
+                   library_ms=cuda_ms(library, 20), bound_ms=bound[0],
+                   bound_by=bound[1])
+        print(f"[6 coworkload] {name} {dt} {what}: ms={rec['ms']:.4f} "
+              f"plain_ms={rec['plain_ms']:.3f} "
+              f"library_ms={rec['library_ms']:.4f} "
+              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})")
+
+    n, d_feat = sampler.n_pad, SAGE["d_feat"]
+    for dt, msg in msgs.items():
+        time_call(
+            "segment_matmul", dt, f"E={msg.shape[0]} N={n} D={d_feat}",
+            lambda: ops.segment_matmul(msg, dst, n),
+            lambda: ref.segment_matmul_ref(msg, dst, n),
+            lambda: torch.zeros(n, d_feat, device="cuda").index_add_(
+                0, dst, msg.float()),
+            bound_ms(msg.numel() * msg.element_size() + 4 * n * d_feat
+                     + 4 * dst.numel(), msg.numel(), "fp32"))
+    sort_ms = cuda_ms(lambda: edges_by_node(dst, n), 20)
+    print(f"[6 coworkload] segment_matmul: of each call, the sort by dst "
+          f"(edges_by_node) takes {sort_ms:.4f} ms")
+    flat = table.view(f * rows, d_emb)
+    offsets = torch.arange(f, device="cuda") * rows
+    time_call(
+        "embedding_bag", "fp32", f"B={ids.shape[0]} F={f} V={rows} D={d_emb}",
+        lambda: ops.embedding_bag(table, ids),
+        lambda: ref.embedding_bag_ref(table, ids),
+        lambda: F.embedding(ids + offsets, flat),
+        bound_ms(ids.numel() * (4 * d_emb + 4 + 4 * d_emb), 0, "fp32"))
+    for dt, (q, k, v) in by_dtype.items():
+        time_call(
+            "flash_attention", dt, f"H={h} S={s} D={d} causal",
+            lambda: ops.flash_attention(q, k, v),
+            lambda: ref.flash_attention_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                   is_causal=True),
+            bound_ms(q.element_size() * 3 * q.numel() + 4 * q.numel(),
+                     4 * h * d * s * (s + 1) / 2, dt))
+    return records
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -312,11 +655,16 @@ def main() -> int:
              f"repository")
     sys.path.insert(0, str(SRC))
 
+    from repro_torch.data.synthetic_graphs import planted_clique_graph
+
     env = phase_environment()
     kernel = phase_kernels(env)
+    ragged = phase_coworkload_kernels()
     phase_quickstart_parity()
     launches, comp, res = phase_main_path()
     phase_profile(comp, res)
+    del comp, res
+    cowork = phase_coworkload(planted_clique_graph(**FULL_GRAPH), ragged)
     kernels = [dict(
         name="masked_intersect", route="cuda",
         source="src/repro_torch/kernels/csrc/masked_intersect.cu",
@@ -325,6 +673,17 @@ def main() -> int:
         ms=kernel["ms"], plain_ms=kernel["plain_ms"],
         bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"],
         library_ms=None)]
+    for name, line in (("segment_matmul", 59), ("embedding_bag", 46),
+                       ("flash_attention", 84)):
+        # the fp32 record first; a bf16 one beside it where both run
+        by_dtype = cowork[name]
+        entry = dict(name=name, route="cuda",
+                     source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                     replaces=f"src/repro/kernels/{name}.py:{line}",
+                     **by_dtype["fp32"])
+        if "bf16" in by_dtype:
+            entry["bf16"] = by_dtype["bf16"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": env["name"],

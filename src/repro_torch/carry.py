@@ -1,10 +1,11 @@
 """Carry data and engine state across from the reference package.
 
 The data takes the place of weights here: a graph built by ``repro`` comes
-across through its numpy fields (:func:`graph_from_arrays`), and a
-reference :class:`~repro.core.engine.EngineState` through its arrays and
-scalar counters (:func:`state_from_arrays`), so that a run started by the
-reference can be continued by the port.  Both take plain numpy and Python
+across through its numpy fields (:func:`graph_from_arrays`), a reference
+:class:`~repro.core.engine.EngineState` through its arrays and scalar
+counters (:func:`state_from_arrays`), so that a run started by the
+reference can be continued by the port, and any reference array (a table,
+q/k/v) through :func:`tensor_from_array`.  All take plain numpy and Python
 values: nothing of ``repro`` is imported.
 """
 from __future__ import annotations
@@ -25,6 +26,22 @@ STATE_SCALARS = ("steps", "candidates", "expanded", "pruned", "refilled",
 #: reference EngineState arrays (int32)
 STATE_ARRAYS = ("pool_states", "pool_prio", "pool_ub", "result_states",
                 "result_keys")
+
+
+def tensor_from_array(a, device, dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """A tensor on ``device`` holding the reference array ``a`` (numpy, or
+    anything ``np.asarray`` takes), optionally cast to ``dtype``.
+
+    A bfloat16 array reaches numpy as ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses; it is recognised by its dtype name and
+    carried bit for bit through ``uint16``."""
+    a = np.array(a, order="C")          # a writable copy: torch shares it
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
 
 
 def graph_from_arrays(n: int, indptr: np.ndarray, indices: np.ndarray,

@@ -28,6 +28,8 @@ import functools
 import numpy as np
 import torch
 
+from .api import resolve_device
+
 WORD_BITS = 32
 
 
@@ -59,9 +61,11 @@ def to_tensor(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(device)
 
 
-def zeros(shape_prefix, n_bits: int, device="cpu") -> torch.Tensor:
+def zeros(shape_prefix, n_bits: int, device=None) -> torch.Tensor:
+    """Empty bitsets, int32 words, on ``device`` (default ``cuda``; raises
+    when no CUDA device is present and ``device`` is not given)."""
     return torch.zeros(tuple(shape_prefix) + (num_words(n_bits),),
-                       dtype=torch.int32, device=device)
+                       dtype=torch.int32, device=resolve_device(device))
 
 
 def from_indices(indices, n_bits: int) -> np.ndarray:

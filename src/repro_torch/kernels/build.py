@@ -4,11 +4,12 @@ runs; here a kernel always runs compiled, on the card.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, which the
-kernel's wrapper loads with ``ctypes``.  The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded from the build directory (``build/repro_torch`` at
-the repository root, listed in ``.gitignore``).  :func:`build_all` starts
-one ``nvcc`` per source, all at once, and waits for every one.
+kernel's wrapper loads with ``ctypes`` (:func:`launch`).  The library's
+file name carries a hash of the source, the shared headers and the flags,
+so an edited source is rebuilt and an unchanged one is loaded from the
+build directory (``build/repro_torch`` at the repository root, listed in
+``.gitignore``).  :func:`build_all` starts one ``nvcc`` per source, all at
+once, and waits for every one.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -48,8 +49,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(sources()[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the kernel's library goes: named by a hash of its source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    text = sources()[name].read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -97,3 +101,23 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def launch(name: str, argtypes: Sequence, *args) -> None:
+    """Call the kernel's C entry ``<name>_launch(*args)`` and raise if it
+    returns a CUDA error (a launch the card refused never runs, and a later
+    synchronize would not report it).  ``argtypes`` are declared before the
+    first call: without them ctypes passes every int as a C int and cuts
+    the 64-bit pointers."""
+    lib = load(name)
+    entry = getattr(lib, f"{name}_launch")
+    if entry.argtypes is None:
+        entry.argtypes = list(argtypes)
+        entry.restype = ctypes.c_int
+        describe = getattr(lib, f"{name}_error_string")
+        describe.argtypes = [ctypes.c_int]
+        describe.restype = ctypes.c_char_p
+    err = entry(*args)
+    if err:
+        text = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({text})")

@@ -89,19 +89,10 @@ def _check(a_bits, b_bits, mask_bits) -> None:
                          f"shape {tuple(a_bits.shape)}")
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("masked_intersect")
-    if lib.masked_intersect_launch.argtypes is None:
-        # without argtypes ctypes passes every int as a C int and cuts the
-        # 64-bit pointers
-        lib.masked_intersect_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.masked_intersect_launch.restype = ctypes.c_int
-        lib.masked_intersect_error_string.argtypes = [ctypes.c_int]
-        lib.masked_intersect_error_string.restype = ctypes.c_char_p
-    return lib
+# pointers and the stream as c_void_p, shapes as C ints
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p)
 
 
 def masked_intersect(a_bits: torch.Tensor, b_bits: torch.Tensor,
@@ -127,17 +118,12 @@ def masked_intersect(a_bits: torch.Tensor, b_bits: torch.Tensor,
     if min(n_rows, n_cols, w) < 1:
         raise ValueError(f"masked_intersect kernel needs B, N, W >= 1, got "
                          f"B={n_rows} N={n_cols} W={w}")
-    lib = _library()
     out = torch.empty((n_rows, n_cols), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        err = lib.masked_intersect_launch(
-            a_bits.data_ptr(),
+        build.launch(
+            "masked_intersect", _ARGTYPES, a_bits.data_ptr(),
             None if mask_bits is None else mask_bits.data_ptr(),
             b_bits.data_ptr(), out.data_ptr(), n_rows, n_cols, w,
             torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"masked_intersect launch failed: CUDA error {err} "
-            f"({lib.masked_intersect_error_string(err).decode()})")
     launches += 1
     return out

@@ -49,9 +49,17 @@ def test_i32_u32_views_match_bitcast():
 
 
 def test_zeros():
-    z = bs.zeros((3, 2), 70)
-    assert z.dtype == torch.int32
+    z = bs.zeros((3, 2), 70, device="cpu")
+    assert z.dtype == torch.int32 and z.device.type == "cpu"
     _same(z, ref.zeros((3, 2), 70))
+
+
+def test_zeros_defaults_to_the_card(monkeypatch):
+    """Like every entry point, zeros runs on cuda unless asked for the
+    CPU: without a card and without device= it raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bs.zeros((1,), 1)
 
 
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 257])

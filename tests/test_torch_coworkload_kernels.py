@@ -1,0 +1,243 @@
+"""The port's co-workload kernels — segment_matmul, embedding_bag,
+flash_attention — on the CPU (their plain PyTorch versions) against
+repro's pure-jnp oracles and its Pallas kernels in interpret mode, at the
+shapes, dtypes and tolerances of tests/test_kernels.py; then the slice as
+a whole, from each package's data pipeline through its kernels.  Inputs
+are made with numpy from a seed; bf16 inputs are rounded from the same
+fp32 arrays by JAX and carried across bit for bit.  The Hopper kernels
+themselves run only on the card (chip_smoke.py holds each against its
+plain version there)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.data import pipeline as ref_pipeline
+from repro.data.synthetic_graphs import densifying_graph as ref_densifying
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref
+from repro_torch.carry import tensor_from_array
+from repro_torch.data import pipeline
+from repro_torch.data.synthetic_graphs import densifying_graph
+from repro_torch.kernels import embedding_bag, flash_attention, ops
+from repro_torch.kernels import ref as port_ref
+from repro_torch.kernels import segment_matmul
+
+torch.set_num_threads(2)
+
+DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _normal(seed, *shape, dtype="float32"):
+    """The same numbers on both sides: a JAX array (rounded to ``dtype``
+    from numpy fp32) and its tensor."""
+    x = np.random.default_rng(seed).standard_normal(shape, np.float32)
+    a = jnp.asarray(x).astype(DTYPES[dtype])
+    return a, tensor_from_array(np.asarray(a), "cpu")
+
+
+def _close(got: torch.Tensor, want, tol):
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want, dtype=np.float32),
+                               rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------- segment_matmul
+@pytest.mark.parametrize("e,n,d", [(64, 16, 8), (300, 50, 16),
+                                   (1024, 128, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_matmul_matches_reference(e, n, d, dtype):
+    msg_j, msg = _normal(e + n, e, d, dtype=dtype)
+    dst = np.random.default_rng(1).integers(0, n, e, dtype=np.int32)
+    got = ops.segment_matmul(msg, torch.from_numpy(dst), n)
+    assert got.shape == (n, d)
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    _close(got, ref.segment_matmul_ref(msg_j, jnp.asarray(dst), n), tol)
+    _close(got, ref_ops.segment_matmul(msg_j, jnp.asarray(dst), num_nodes=n,
+                                       block_n=32, block_e=128,
+                                       interpret=True), tol)
+
+
+def test_segment_matmul_drops_out_of_range_destinations():
+    n = 10
+    msg_j, msg = _normal(3, 40, 8)
+    dst = np.random.default_rng(2).integers(0, n, 40, dtype=np.int32)
+    dst[::5] = -1
+    dst[1::7] = n
+    dst[2::9] = n + 1
+    got = ops.segment_matmul(msg, torch.from_numpy(dst), n)
+    _close(got, ref.segment_matmul_ref(msg_j, jnp.asarray(dst), n), 1e-5)
+    _close(got, ref_ops.segment_matmul(msg_j, jnp.asarray(dst), num_nodes=n,
+                                       block_n=8, block_e=16,
+                                       interpret=True), 1e-5)
+    keep = (dst >= 0) & (dst < n)
+    _close(got, ops.segment_matmul(msg[torch.from_numpy(keep)],
+                                   torch.from_numpy(dst[keep]), n), 0)
+
+
+def test_edges_by_node_is_a_stable_csr_of_the_kept_edges():
+    """The kernel's input, built by the wrapper: node v's edges are
+    order[ptr[v]:ptr[v+1]], in edge order; dropped edges come after."""
+    n = 7
+    dst = np.random.default_rng(5).integers(-2, n + 2, 200, dtype=np.int32)
+    order, ptr = segment_matmul.edges_by_node(torch.from_numpy(dst), n)
+    assert order.dtype == ptr.dtype == torch.int32
+    assert ptr.shape == (n + 1,) and int(ptr[0]) == 0
+    order, ptr = order.numpy(), ptr.numpy()
+    for v in range(n):
+        np.testing.assert_array_equal(order[ptr[v]:ptr[v + 1]],
+                                      np.nonzero(dst == v)[0])
+    dropped = np.nonzero((dst < 0) | (dst >= n))[0]
+    np.testing.assert_array_equal(order[ptr[n]:], dropped)
+
+
+# ----------------------------------------------------------- embedding_bag
+@pytest.mark.parametrize("f,v,d,b", [(5, 37, 8, 9), (40, 1000, 32, 16),
+                                     (1, 8, 128, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_matches_reference(f, v, d, b, dtype):
+    table_j, table = _normal(f * v, f, v, d, dtype=dtype)
+    ids = np.random.default_rng(2).integers(0, v, (b, f), dtype=np.int32)
+    got = ops.embedding_bag(table, torch.from_numpy(ids))
+    assert got.shape == (b, f * d)
+    _close(got, ref.embedding_bag_ref(table_j, jnp.asarray(ids)), 1e-6)
+    _close(got, ref_ops.embedding_bag(table_j, jnp.asarray(ids),
+                                      interpret=True), 1e-6)
+
+
+def test_embedding_bag_reads_out_of_range_ids_like_the_reference():
+    """Outside the contract (ids in [0, V)) the ids are read as the
+    reference's gather reads them: negative from the end, then clamped."""
+    table_j, table = _normal(5, 3, 7, 4)
+    ids = np.array([[0, -1, 6], [7, -7, 100], [-8, 3, -100]], np.int32)
+    got = ops.embedding_bag(table, torch.from_numpy(ids))
+    _close(got, ref.embedding_bag_ref(table_j, jnp.asarray(ids)), 0)
+
+
+# --------------------------------------------------------- flash_attention
+@pytest.mark.parametrize("h,s,d", [(2, 128, 32), (4, 256, 64), (1, 512, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_reference(h, s, d, causal, dtype):
+    (q_j, q), (k_j, k), (v_j, v) = (_normal(h * s + i, h, s, d, dtype=dtype)
+                                    for i in range(3))
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.shape == (h, s, d)
+    tol = 2e-4 if dtype == "float32" else 3e-2
+    _close(got, ref.flash_attention_ref(q_j, k_j, v_j, causal=causal), tol)
+    _close(got, ref_ops.flash_attention(q_j, k_j, v_j, causal=causal,
+                                        block_q=64, block_k=64,
+                                        interpret=True), tol)
+
+
+# ------------------------------------------------- the wrappers' contract
+KERNELS = [
+    (segment_matmul, lambda: (torch.ones(6, 4),
+                              torch.tensor([0, 1, 1, 2, 0, 2],
+                                           dtype=torch.int32), 3)),
+    (embedding_bag, lambda: (torch.ones(2, 5, 4),
+                             torch.zeros(3, 2, dtype=torch.int32))),
+    (flash_attention, lambda: tuple(torch.ones(2, 8, 4) for _ in range(3))),
+]
+NAMES = ["segment_matmul", "embedding_bag", "flash_attention"]
+
+
+@pytest.mark.parametrize("mod,args", KERNELS, ids=NAMES)
+def test_cpu_path_counts_no_launches(mod, args):
+    mod.reset_launches()
+    fn = getattr(ops, mod.__name__.rsplit(".", 1)[1])
+    out = fn(*args())
+    assert out.device.type == "cpu" and out.dtype == torch.float32
+    assert mod.launches == 0
+
+
+@pytest.mark.parametrize("mod,args", KERNELS, ids=NAMES)
+def test_wrapper_rejects_what_the_kernel_does_not_take(mod, args):
+    fn = getattr(ops, mod.__name__.rsplit(".", 1)[1])
+    good = args()
+    wrong_dtype = (good[0].double(),) + good[1:]
+    wrong_rank = (good[0][None],) + good[1:]
+    with pytest.raises(TypeError):
+        fn(*wrong_dtype)
+    with pytest.raises((TypeError, ValueError)):
+        fn(*wrong_rank)
+    on_meta = tuple(t.to("meta") if isinstance(t, torch.Tensor) else t
+                    for t in good)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fn(*on_meta)
+    mixed = (good[0].to("meta"),) + good[1:]
+    with pytest.raises(ValueError):
+        fn(*mixed)
+
+
+def test_plain_versions_are_the_ref_names():
+    assert port_ref.segment_matmul_ref is segment_matmul.segment_matmul_plain
+    assert port_ref.embedding_bag_ref is embedding_bag.embedding_bag_plain
+    assert port_ref.flash_attention_ref is \
+        flash_attention.flash_attention_plain
+
+
+# ------------------------------------------------------- the whole slice
+def test_coworkload_slice_matches_reference_end_to_end():
+    """Each package's pipeline through its own kernels: a GraphSAGE 2-hop
+    sample's message sum, a molecule batch's per-graph readout, a recsys
+    batch's embedding gather and attention over a token batch."""
+    # GraphSAGE: messages = features[edge_src], summed into edge_dst
+    kw = dict(batch_nodes=16, fanout=(5, 3), d_feat=16, seed=0)
+    sub = pipeline.NeighborSampler(densifying_graph(300, 1200, seed=0),
+                                   **kw).sample(1)
+    ref_sub = ref_pipeline.NeighborSampler(
+        ref_densifying(300, 1200, seed=0), **kw).sample(1)
+    n_pad = len(sub.features)
+    feats = torch.from_numpy(sub.features)
+    got = ops.segment_matmul(feats[torch.from_numpy(sub.edge_src).long()],
+                             torch.from_numpy(sub.edge_dst), n_pad)
+    want = ref_ops.segment_matmul(
+        jnp.asarray(ref_sub.features)[jnp.asarray(ref_sub.edge_src)],
+        jnp.asarray(ref_sub.edge_dst), num_nodes=n_pad, interpret=True)
+    _close(got, want, 1e-5)
+    assert float(got[:16].abs().sum()) > 0          # seeds got messages
+
+    # molecules: the sum readout of atom features per graph
+    kw = dict(batch=4, n_atoms=9, n_edges=12, d_feat=8, seed=3, step=2)
+    mol, ref_mol = pipeline.molecule_batch(**kw), \
+        ref_pipeline.molecule_batch(**kw)
+    got = ops.segment_matmul(torch.from_numpy(mol["features"]),
+                             torch.from_numpy(mol["graph_ids"]),
+                             mol["num_graphs"])
+    want = ref_ops.segment_matmul(jnp.asarray(ref_mol["features"]),
+                                  jnp.asarray(ref_mol["graph_ids"]),
+                                  num_nodes=ref_mol["num_graphs"],
+                                  interpret=True)
+    _close(got, want, 1e-5)
+
+    # recsys: per-field gather of the sparse ids from a seeded table
+    kw = dict(n_sparse=6, n_dense=4, vocab=50, batch=12, seed=2)
+    ids = pipeline.RecsysStream(**kw).batch_at(3)["sparse_ids"]
+    ref_ids = ref_pipeline.RecsysStream(**kw).batch_at(3)["sparse_ids"]
+    table_j, table = _normal(9, 6, 50, 8)
+    _close(ops.embedding_bag(table, torch.from_numpy(ids)),
+           ref_ops.embedding_bag(table_j, jnp.asarray(ref_ids),
+                                 interpret=True), 1e-6)
+
+    # tokens: embedded, projected to q/k/v, causal attention
+    kw = dict(vocab=64, batch=1, seq=128, seed=1)
+    tok = pipeline.TokenStream(**kw).batch_at(0)["tokens"][0]
+    ref_tok = ref_pipeline.TokenStream(**kw).batch_at(0)["tokens"][0]
+    rng = np.random.default_rng(4)
+    embed = rng.standard_normal((64, 32), np.float32)
+    w = rng.standard_normal((3, 32, 2 * 16), np.float32) \
+        / np.float32(32 ** 0.5)
+
+    def heads(x):                                    # [S, 2*16] -> [2, S, 16]
+        return x.reshape(128, 2, 16).transpose(1, 0, 2)
+
+    q, k, v = (heads(embed[tok] @ w[i]) for i in range(3))
+    rq, rk, rv = (heads(embed[ref_tok] @ w[i]) for i in range(3))
+    got = ops.flash_attention(*(torch.from_numpy(np.ascontiguousarray(x))
+                                for x in (q, k, v)))
+    want = ref_ops.flash_attention(jnp.asarray(rq), jnp.asarray(rk),
+                                   jnp.asarray(rv), block_q=64, block_k=64,
+                                   interpret=True)
+    _close(got, want, 2e-4)
