@@ -9,7 +9,12 @@ two paths — single-device maximum-clique discovery, and the co-workload
 path from the data pipeline through the float kernels — at full width,
 and prints where the time went.  Phases, one line each (plus detail):
 
-1. environment: the card's name and power limit, the kernels' build;
+1. environment: the card's name and power limit, the kernels' build; for
+   ``flash_attention``, the counts of ``HGMMA`` (wgmma) and ``UTMALDG``
+   (TMA load) instructions in the library's SASS and ``ptxas``' registers
+   and spill bytes of each of its kernels, the other libraries' registers
+   and spill bytes on lines of their own (it fails on no ``HGMMA``, no
+   ``UTMALDG``, or a spill in the DP = 128 kernel, the Llama shape's);
 2. each kernel against its plain version on the card at ragged shapes
    (``masked_intersect`` and ``embedding_bag`` exact, ``segment_matmul``
    within 1e-4, ``flash_attention`` within the reference tests' 2e-4 in
@@ -46,6 +51,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -147,6 +154,59 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def ptxas_report(log: str) -> dict:
+    """{kernel (mangled name): (registers, spill bytes)} from the
+    ``ptxas -v`` lines of a build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name = found.group(1)
+            out[name] = [0, 0]
+        elif name and "spill stores" in line:
+            out[name][1] = sum(int(x) for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+        elif name and "Used" in line and "registers" in line:
+            out[name][0] = int(re.search(r"Used (\d+) registers",
+                                         line).group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def sass_counts(lib: Path, opcodes) -> dict:
+    """How many instructions of each opcode the library's SASS holds."""
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or str(
+        Path(build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
+
+
+def check_flash_build(log: str) -> None:
+    """The bf16 attention kernel runs on wgmma fed by TMA, and the one the
+    Llama shape takes (DP = 128) keeps its registers: fails otherwise."""
+    from repro_torch.kernels import build
+    counts = sass_counts(build.library_path("flash_attention"),
+                         ("HGMMA", "UTMALDG"))
+    kernels = ptxas_report(log)
+    bf16 = {int(re.search(r"wgmma_kernelILi(\d+)E", name).group(1)): rep
+            for name, rep in kernels.items()
+            if "flash_attention_wgmma_kernel" in name}
+    fp32 = [rep for name, rep in kernels.items() if "fma_kernel" in name]
+    print(f"[1 env] flash_attention SASS: HGMMA={counts['HGMMA']} "
+          f"UTMALDG={counts['UTMALDG']}; " + "; ".join(
+              f"{label}: {regs} registers, {spill} spill bytes"
+              for label, (regs, spill) in
+              [(f"bf16 DP={dp}", rep) for dp, rep in sorted(bf16.items())]
+              + [("fp32", rep) for rep in fp32]))
+    if not counts["HGMMA"] or not counts["UTMALDG"]:
+        fail(f"flash_attention SASS has no wgmma or no TMA load: {counts}")
+    if 128 not in bf16:
+        fail("no ptxas report for the bf16 DP=128 attention kernel")
+    if bf16[128][1]:
+        fail(f"the bf16 DP=128 attention kernel spills {bf16[128][1]} bytes")
+
+
 def phase_environment():
     import torch
     from repro_torch.kernels import build
@@ -163,9 +223,12 @@ def phase_environment():
           f"torch={torch.__version__} cuda={torch.version.cuda} "
           f"build={build_s:.2f}s kernels={sorted(report)}")
     for kname, rep in report.items():
-        for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {kname}: {line.strip()}")
+        if kname == "flash_attention":
+            continue            # check_flash_build prints its own line
+        for kernel, (regs, spill) in ptxas_report(rep["log"]).items():
+            print(f"  ptxas {kname} {kernel}: {regs} registers, "
+                  f"{spill} spill bytes")
+    check_flash_build(report["flash_attention"]["log"])
     return dict(name=name, smi=smi, sms=props.multi_processor_count,
                 clock_hz=max_clock_mhz * 1e6)
 
@@ -603,15 +666,16 @@ def phase_coworkload(graph, ragged: dict) -> dict:
 
     # times at full width, on the last batch's inputs; these launches come
     # after the counts were read and are not the path's
-    def time_call(name, dt, what, kernel, plain, library, bound):
+    def time_call(name, dt, what, kernel, plain, library, bound, flops=0):
         rec = records[name][dt]
         rec.update(ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3, 1),
                    library_ms=cuda_ms(library, 20), bound_ms=bound[0],
                    bound_by=bound[1])
+        rate = f" TFLOP/s={flops / rec['ms'] / 1e9:.1f}" if flops else ""
         print(f"[6 coworkload] {name} {dt} {what}: ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.3f} "
               f"library_ms={rec['library_ms']:.4f} "
-              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})")
+              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}){rate}")
 
     n, d_feat = sampler.n_pad, SAGE["d_feat"]
     for dt, msg in msgs.items():
@@ -634,6 +698,7 @@ def phase_coworkload(graph, ragged: dict) -> dict:
         lambda: ref.embedding_bag_ref(table, ids),
         lambda: F.embedding(ids + offsets, flat),
         bound_ms(ids.numel() * (4 * d_emb + 4 + 4 * d_emb), 0, "fp32"))
+    flops = 4 * h * d * s * (s + 1) / 2
     for dt, (q, k, v) in by_dtype.items():
         time_call(
             "flash_attention", dt, f"H={h} S={s} D={d} causal",
@@ -642,7 +707,7 @@ def phase_coworkload(graph, ragged: dict) -> dict:
             lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
                                                    is_causal=True),
             bound_ms(q.element_size() * 3 * q.numel() + 4 * q.numel(),
-                     4 * h * d * s * (s + 1) / 2, dt))
+                     flops, dt), flops)
     return records
 
 

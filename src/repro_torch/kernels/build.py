@@ -57,18 +57,29 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The compiler's output for the kernel's library, beside it."""
+    return library_path(name).with_suffix(".log")
+
+
+def _read(path: Path) -> str:
+    return path.read_text() if path.exists() else ""
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile every named kernel (default: all) whose library is missing,
     one ``nvcc`` process per source, all started together.  Returns, per
-    kernel, ``{"seconds", "log"}`` (``log`` holds ``ptxas``' register and
-    shared-memory report; both are empty for a library already built).
-    Raises with the compiler's output if any build fails."""
+    kernel, ``{"seconds", "log"}``: ``log`` holds ``ptxas``' register,
+    spill and shared-memory report, kept beside the library
+    (:func:`log_path`) and read from there for a library already built,
+    whose ``seconds`` is 0.  Raises with the compiler's output if any
+    build fails."""
     srcs = sources()
     names = list(srcs) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    report = {name: {"seconds": 0.0, "log": ""} for name in names
-              if library_path(name).exists()}
+    report = {name: {"seconds": 0.0, "log": _read(log_path(name))}
+              for name in names if library_path(name).exists()}
     todo = [name for name in names if name not in report]
     compiler = nvcc() if todo else ""
     procs = {}
@@ -86,6 +97,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
             continue
+        log_path(name).write_text(log)
         os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))

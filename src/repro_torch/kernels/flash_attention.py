@@ -8,13 +8,25 @@ key/value heads folded into ``H`` by the caller, as in the reference).
 
 On the card, :func:`flash_attention` launches the hand-written Hopper
 kernel ``csrc/flash_attention.cu``, which replaces
-``repro/kernels/flash_attention.py::_kernel``: one block per (head, 64-row
-q-tile) walks the k/v tiles with the running max and denominator in
-registers, skips the tiles above the diagonal under ``causal``, and never
-writes the ``[S, S]`` scores to device memory.  fp32 inputs run on fp32
-FMA (TF32 would break the reference's 2e-4 tolerance), bf16 inputs on the
-tensor cores (``mma.sync``, fp32 accumulation).  Any S and any D up to 256
-run.  The source note has the detail.
+``repro/kernels/flash_attention.py::_kernel``: one block per (head, q-tile)
+walks the k/v tiles with the running max and denominator in registers,
+skips the tiles above the diagonal under ``causal``, and never writes the
+``[S, S]`` scores to device memory.  Its bound is operations: at the
+Llama-3-8B shape (H=32, S=8192, D=128, causal) 5.5e11 flops, 0.5559 ms at
+the H100's 989 TFLOP/s of bf16 tensor-core products (8.2 ms at 67 TFLOP/s
+of fp32 FMA).
+
+- fp32 inputs run on fp32 FMA (TF32 would break the reference's 2e-4
+  tolerance): 64-row q tiles, 64-key tiles.
+- bf16 inputs run both products on ``wgmma`` (fp32 accumulation): 128-row
+  q tiles over two warpgroups, the q tile kept in shared memory, k/v tiles
+  of 128 keys (64 at D > 128) streamed by TMA through a 2-stage mbarrier
+  ring, all in the 128-byte swizzled layout; p rounded to bf16 for the
+  P·V product as the TPU kernel rounds it.  The kernel's rows are 64, 128
+  or 256 wide (:func:`_bf16_plan`): a narrower D is zero-padded here, the
+  true D still sets the scale and the stored columns.
+
+Any S and any D up to 256 run.  The source note has the detail.
 
 On the CPU it runs :func:`flash_attention_plain`, the plain PyTorch version
 that the CPU tests use and that the card's smoke run compares the kernel
@@ -37,10 +49,12 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256          # the kernel's widest shared-memory layout
 MAX_HEADS = 65535           # the grid's y extent
 
+BF16_WIDTHS = (64, 128, 256)   # the bf16 kernel's row widths (templates)
+
 # pointers and the stream as c_void_p, sizes and flags as C ints
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def reset_launches() -> None:
@@ -64,6 +78,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scores.masked_fill_(above, float("-inf"))
         out[i] = torch.softmax(scores, dim=-1) @ v[i].float()
     return out
+
+
+def _bf16_plan(d: int) -> tuple:
+    """``(dp, pad)`` for bf16 rows of ``d`` columns: the bf16 kernel's row
+    width (its template: the narrowest of 64, 128, 256 that holds ``d``)
+    and the zero columns the wrapper appends to reach it."""
+    dp = next(w for w in BF16_WIDTHS if d <= w)
+    return dp, dp - d
+
+
+def _tma_rows(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t`` as the bf16 kernel's TMA loads read it: ``pad`` zero columns
+    appended, on a 16-byte aligned base."""
+    if pad:
+        return torch.nn.functional.pad(t, (0, pad))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -100,11 +130,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM or h > MAX_HEADS:
         raise ValueError(f"flash_attention kernel takes D <= {MAX_HEAD_DIM} "
                          f"and H <= {MAX_HEADS}, got H={h} D={d}")
+    width = d
+    if q.dtype == torch.bfloat16:
+        width, pad = _bf16_plan(d)
+        q, k, v = (_tma_rows(t, pad) for t in (q, k, v))
     out = torch.empty((h, s, d), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         build.launch("flash_attention", _ARGTYPES, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), out.data_ptr(), h, s, d, int(causal),
-                     DTYPES[q.dtype],
+                     v.data_ptr(), out.data_ptr(), h, s, d, width,
+                     int(causal), DTYPES[q.dtype],
                      torch.cuda.current_stream(device).cuda_stream)
     launches += 1
     return out
