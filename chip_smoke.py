@@ -11,10 +11,11 @@ and prints where the time went.  Phases, one line each (plus detail):
 
 1. environment: the card's name and power limit, the kernels' build; for
    ``flash_attention``, the counts of ``HGMMA`` (wgmma) and ``UTMALDG``
-   (TMA load) instructions in the library's SASS and ``ptxas``' registers
-   and spill bytes of each of its kernels, the other libraries' registers
-   and spill bytes on lines of their own (it fails on no ``HGMMA``, no
-   ``UTMALDG``, or a spill in the DP = 128 kernel, the Llama shape's);
+   (TMA load) instructions in the SASS of each of its kernels and
+   ``ptxas``' registers and spill bytes of each, the other libraries'
+   registers and spill bytes on lines of their own (it fails where a bf16
+   or fp32 attention kernel has no ``HGMMA`` or no ``UTMALDG``, or where
+   the DP = 128 kernel of either dtype, the Llama shape's, spills);
 2. each kernel against its plain version on the card at ragged shapes
    (``masked_intersect`` and ``embedding_bag`` exact, ``segment_matmul``
    within 1e-4, ``flash_attention`` within the reference tests' 2e-4 in
@@ -38,7 +39,9 @@ and prints where the time went.  Phases, one line each (plus detail):
    against the plain version as in phase 2, and every kernel must have
    launched once a batch in each dtype.  Then each kernel is timed on the
    last batch's inputs, beside its plain version, one PyTorch library
-   call for the same function, and its bound.
+   call for the same function, and its bound (for fp32 attention, whose
+   kernel splits each fp32 product into three tf32 tensor-core products,
+   the bound of those three, with the fp32 FMA bound beside it).
 
 The line before the last is the kernels' JSON record (each kernel's fp32
 numbers, and its bf16 numbers under ``bf16`` where phase 6 runs both,
@@ -86,8 +89,8 @@ MAIN_SHAPE = (64, 32768, 1024)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 POPC_PER_CLOCK_PER_SM = 16       # CUDA C++ Programming Guide, CC 9.0
 # H100 SXM dense peaks (NVIDIA data sheet): fp32 outside the tensor cores,
-# bf16 on the tensor cores
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+# bf16 and tf32 on the tensor cores
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
 
 # the co-workload kernels: ragged sweeps (tests/test_kernels.py's among
 # them) before the full-width shape
@@ -173,38 +176,61 @@ def ptxas_report(log: str) -> dict:
 
 
 def sass_counts(lib: Path, opcodes) -> dict:
-    """How many instructions of each opcode the library's SASS holds."""
+    """{kernel (mangled name): {opcode: count}}: how many instructions of
+    each opcode the SASS of each of the library's kernels holds."""
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or str(
         Path(build.nvcc()).parent / "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
+    out, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            out[name] = dict.fromkeys(opcodes, 0)
+        elif name:
+            for op in opcodes:
+                out[name][op] += len(re.findall(rf"\b{op}\b", line))
+    return out
+
+
+# the attention kernels by dtype, and the template argument (row width DP)
+# that follows each one's name in its mangled form
+FLASH_KERNELS = {"bf16": "flash_attention_wgmma_kernelILi",
+                 "fp32": "flash_attention_tf32_kernelILi"}
 
 
 def check_flash_build(log: str) -> None:
-    """The bf16 attention kernel runs on wgmma fed by TMA, and the one the
-    Llama shape takes (DP = 128) keeps its registers: fails otherwise."""
+    """Both attention kernels run on wgmma fed by TMA, and the ones the
+    Llama shape takes (DP = 128) keep their registers: fails otherwise."""
     from repro_torch.kernels import build
-    counts = sass_counts(build.library_path("flash_attention"),
-                         ("HGMMA", "UTMALDG"))
+    sass = sass_counts(build.library_path("flash_attention"),
+                       ("HGMMA", "UTMALDG"))
     kernels = ptxas_report(log)
-    bf16 = {int(re.search(r"wgmma_kernelILi(\d+)E", name).group(1)): rep
-            for name, rep in kernels.items()
-            if "flash_attention_wgmma_kernel" in name}
-    fp32 = [rep for name, rep in kernels.items() if "fma_kernel" in name]
-    print(f"[1 env] flash_attention SASS: HGMMA={counts['HGMMA']} "
-          f"UTMALDG={counts['UTMALDG']}; " + "; ".join(
-              f"{label}: {regs} registers, {spill} spill bytes"
-              for label, (regs, spill) in
-              [(f"bf16 DP={dp}", rep) for dp, rep in sorted(bf16.items())]
-              + [("fp32", rep) for rep in fp32]))
-    if not counts["HGMMA"] or not counts["UTMALDG"]:
-        fail(f"flash_attention SASS has no wgmma or no TMA load: {counts}")
-    if 128 not in bf16:
-        fail("no ptxas report for the bf16 DP=128 attention kernel")
-    if bf16[128][1]:
-        fail(f"the bf16 DP=128 attention kernel spills {bf16[128][1]} bytes")
+    found = {}                          # (dtype, DP) -> (regs, spill, sass)
+    for name, rep in kernels.items():
+        for dt, stem in FLASH_KERNELS.items():
+            if stem in name:
+                dp = int(re.search(rf"{stem}(\d+)E", name).group(1))
+                found[dt, dp] = (*rep, sass.get(name, {}))
+    total = {op: sum(c[op] for c in sass.values())
+             for op in ("HGMMA", "UTMALDG")}
+    print(f"[1 env] flash_attention SASS: HGMMA={total['HGMMA']} "
+          f"UTMALDG={total['UTMALDG']}; " + "; ".join(
+              f"{dt} DP={dp}: {regs} registers, {spill} spill bytes, "
+              f"HGMMA={ops.get('HGMMA')} UTMALDG={ops.get('UTMALDG')}"
+              for (dt, dp), (regs, spill, ops) in sorted(found.items())))
+    for dt in FLASH_KERNELS:
+        if (dt, 128) not in found:
+            fail(f"no ptxas report for the {dt} DP=128 attention kernel")
+        if found[dt, 128][1]:
+            fail(f"the {dt} DP=128 attention kernel spills "
+                 f"{found[dt, 128][1]} bytes")
+    for (dt, dp), (_, _, ops) in found.items():
+        if not ops.get("HGMMA") or not ops.get("UTMALDG"):
+            fail(f"the {dt} DP={dp} attention kernel's SASS has no wgmma or "
+                 f"no TMA load: {ops}")
 
 
 def phase_environment():
@@ -666,7 +692,8 @@ def phase_coworkload(graph, ragged: dict) -> dict:
 
     # times at full width, on the last batch's inputs; these launches come
     # after the counts were read and are not the path's
-    def time_call(name, dt, what, kernel, plain, library, bound, flops=0):
+    def time_call(name, dt, what, kernel, plain, library, bound, flops=0,
+                  note=""):
         rec = records[name][dt]
         rec.update(ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3, 1),
                    library_ms=cuda_ms(library, 20), bound_ms=bound[0],
@@ -675,7 +702,8 @@ def phase_coworkload(graph, ragged: dict) -> dict:
         print(f"[6 coworkload] {name} {dt} {what}: ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.3f} "
               f"library_ms={rec['library_ms']:.4f} "
-              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}){rate}")
+              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}){rate}"
+              f"{note}")
 
     n, d_feat = sampler.n_pad, SAGE["d_feat"]
     for dt, msg in msgs.items():
@@ -700,14 +728,21 @@ def phase_coworkload(graph, ragged: dict) -> dict:
         bound_ms(ids.numel() * (4 * d_emb + 4 + 4 * d_emb), 0, "fp32"))
     flops = 4 * h * d * s * (s + 1) / 2
     for dt, (q, k, v) in by_dtype.items():
+        nbytes = q.element_size() * 3 * q.numel() + 4 * q.numel()
+        bound, note = bound_ms(nbytes, flops, dt), ""
+        if dt == "fp32":
+            # three tf32 tensor-core products for each fp32 product (the
+            # 3xTF32 split); the fp32 FMA bound beside it
+            ms, by = bound_ms(nbytes, 3 * flops, "tf32")
+            bound = (ms, f"{by}, 3xTF32")
+            note = f" fma_bound_ms={bound_ms(nbytes, flops, 'fp32')[0]:.4f}"
         time_call(
             "flash_attention", dt, f"H={h} S={s} D={d} causal",
             lambda: ops.flash_attention(q, k, v),
             lambda: ref.flash_attention_ref(q, k, v),
             lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
                                                    is_causal=True),
-            bound_ms(q.element_size() * 3 * q.numel() + 4 * q.numel(),
-                     flops, dt), flops)
+            bound, flops, note)
     return records
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Another revision against this one for the bf16 ``flash_attention``
-kernel, on one NVIDIA card, in one process.
+"""Another revision against this one for the ``flash_attention`` kernel
+of one dtype (bf16 by default, or fp32), on one NVIDIA card, in one
+process.
 
     git archive <revision> | tar -x -C artifacts/other
-    python3 scripts/flash_ab.py --other artifacts/other
+    python3 scripts/flash_ab.py --other artifacts/other [--dtype fp32]
 
 ``--other`` is the root of a checkout of another revision of this repo (any
 from the one that added ``src/repro_torch/kernels/flash_attention.py`` on).
@@ -11,10 +12,11 @@ Its ``repro_torch`` package is loaded under another name, so its wrapper
 builds its own kernel source into its own ``build/`` directory and calls
 its own C entry, whatever that entry's arguments.  The two wrappers are
 timed at the co-workload's Llama-3-8B shape, H=32 S=8192 D=128, causal,
-on the same seeded bf16 inputs.  They take turns (other, this, this,
-other), each turn the median of ``REPS`` calls timed with CUDA events, as
-``chip_smoke.py`` times a kernel.  Both outputs are held against the plain
-version with ``chip_smoke.py``'s bf16 limits first.  Prints the card's
+on the same seeded inputs of the chosen dtype.  They take turns (other,
+this, this, other), each turn the median of ``REPS`` calls timed with CUDA
+events, as ``chip_smoke.py`` times a kernel.  Both outputs are held
+against the plain version with ``chip_smoke.py``'s limits for that dtype
+first.  Prints the card's
 name and power limit, one line per turn, and last a JSON line with every
 turn's time, each kernel's mean of its two turns and the TFLOP/s of each
 (4*H*D*S(S+1)/2 flops).
@@ -62,7 +64,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", type=Path, required=True,
                         help="root of a checkout of another revision")
+    parser.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16",
+                        help="q/k/v dtype (default bf16)")
     args = parser.parse_args()
+    dtype = chip_smoke.torch_dtypes()[args.dtype]
     if not torch.cuda.is_available():
         chip_smoke.fail("no CUDA device")
     print(chip_smoke.nvidia_smi("name,power.limit"))
@@ -71,7 +76,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     q, k, v = (torch.randn((H, S, D), generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
+               .to(dtype) for _ in range(3))
 
     def run_other():
         return other.flash_attention(q, k, v)
@@ -81,7 +86,8 @@ def main() -> int:
 
     want = fa.flash_attention_plain(q, k, v)
     for what, run in (("other", run_other), ("this", run_this)):
-        errs = chip_smoke.errors("flash_attention", "bf16", run(), want, what)
+        errs = chip_smoke.errors("flash_attention", args.dtype, run(), want,
+                                 what)
         print(f"{what}: max abs err {errs['max_abs_err']:.3g}, of a head "
               f"relative {errs['max_rel_err']:.3g}")
     del want
@@ -96,6 +102,7 @@ def main() -> int:
             for w in ("other", "this")}
     print(json.dumps({
         "shape": {"H": H, "S": S, "D": D, "causal": True},
+        "dtype": args.dtype,
         "turns": [{"kernel": w, "ms": ms} for w, ms in turns],
         "mean_ms": mean,
         "tflop_s": {w: FLOPS / ms / 1e9 for w, ms in mean.items()},

@@ -12,12 +12,22 @@ kernel ``csrc/flash_attention.cu``, which replaces
 walks the k/v tiles with the running max and denominator in registers,
 skips the tiles above the diagonal under ``causal``, and never writes the
 ``[S, S]`` scores to device memory.  Its bound is operations: at the
-Llama-3-8B shape (H=32, S=8192, D=128, causal) 5.5e11 flops, 0.5559 ms at
-the H100's 989 TFLOP/s of bf16 tensor-core products (8.2 ms at 67 TFLOP/s
-of fp32 FMA).
+Llama-3-8B shape (H=32, S=8192, D=128, causal) 5.498e11 flops, 0.5559 ms
+at the H100's 989 TFLOP/s of bf16 tensor-core products, and 3.332 ms for
+fp32 inputs, whose products run as three tf32 tensor-core products each
+(8.206 ms at 67 TFLOP/s of fp32 FMA).
 
-- fp32 inputs run on fp32 FMA (TF32 would break the reference's 2e-4
-  tolerance): 64-row q tiles, 64-key tiles.
+- fp32 inputs run both products on ``wgmma`` as split 3xTF32: each
+  operand x is split into hi = tf32(x) and lo = tf32(x - hi), each
+  product is hi·hi + hi·lo + lo·hi in fp32 (about 7e-7 relative error a
+  product; one tf32 product's 5e-4 would miss the 1e-4 per-head limit).
+  tf32 ``wgmma`` reads both operands K-major, so a split pass in the same
+  library first writes q, k hi/lo and vᵀ hi/lo (keys in :data:`KEY_ORDER`
+  within each 8, so that p's split stays in registers) into a work buffer
+  this wrapper allocates (:func:`_fp32_work_elems`); 64-row q tiles per
+  warpgroup stay in shared memory, k/v chunks stream in by TMA through an
+  mbarrier ring.  Rows are 32, 64, 128 or 256 wide (:func:`_fp32_plan`);
+  the split pass zero-fills the columns past D.
 - bf16 inputs run both products on ``wgmma`` (fp32 accumulation): 128-row
   q tiles over two warpgroups, the q tile kept in shared memory, k/v tiles
   of 128 keys (64 at D > 128) streamed by TMA through a 2-stage mbarrier
@@ -50,11 +60,13 @@ MAX_HEAD_DIM = 256          # the kernel's widest shared-memory layout
 MAX_HEADS = 65535           # the grid's y extent
 
 BF16_WIDTHS = (64, 128, 256)   # the bf16 kernel's row widths (templates)
+FP32_WIDTHS = (32, 64, 128, 256)   # the fp32 (tf32) kernel's row widths
 
 # pointers and the stream as c_void_p, sizes and flags as C ints
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p)
 
 
 def reset_launches() -> None:
@@ -86,6 +98,65 @@ def _bf16_plan(d: int) -> tuple:
     and the zero columns the wrapper appends to reach it."""
     dp = next(w for w in BF16_WIDTHS if d <= w)
     return dp, dp - d
+
+
+def _fp32_plan(d: int) -> tuple:
+    """``(dp, pad)`` for fp32 rows of ``d`` columns: the fp32 kernel's row
+    width (its template: the narrowest of 32, 64, 128, 256 that holds
+    ``d``) and the zero columns its split pass appends to reach it."""
+    dp = next(w for w in FP32_WIDTHS if d <= w)
+    return dp, dp - d
+
+
+def _fp32_work_elems(h: int, s: int, dp: int) -> int:
+    """Floats of the fp32 kernel's split operands: q hi, q lo, k hi, k lo
+    ``[H, S, dp]`` and v^T hi, v^T lo ``[H, dp, S8]`` (S8: S rounded up
+    to 8)."""
+    return 4 * h * s * dp + 2 * h * dp * (-(-s // 8) * 8)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it: the low
+    13 mantissa bits dropped, to nearest with ties away from zero (adding
+    half of the dropped range to the bit pattern carries into the kept
+    bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor) -> tuple:
+    """``(hi, lo)``: hi = tf32(x), lo = tf32(x - hi); x - hi is exact in
+    fp32, so ``|x - hi - lo| <= 2^-22 |x|``."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+#: position p of each 8 keys of the fp32 kernel's v^T rows holds key
+#: KEY_ORDER[p]: the tf32 A fragment's k-indices t, t + 4 are then the
+#: score accumulator's keys 2t, 2t + 1
+KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _key_order(n: int) -> torch.Tensor:
+    """The key at each position of a v^T row of ``n`` (a multiple of 8)
+    keys."""
+    return torch.arange(n) // 8 * 8 + torch.tensor(KEY_ORDER).repeat(n // 8)
+
+
+def _split_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    dp: int) -> tuple:
+    """What the fp32 kernel's split pass writes, in plain PyTorch: q hi,
+    q lo, k hi, k lo ``[H, S, dp]`` (columns d.. zero) and v^T hi, v^T lo
+    ``[H, dp, S8]``, keys in :data:`KEY_ORDER` within each 8, keys >= S
+    zero."""
+    h, s, d = q.shape
+    s8 = -(-s // 8) * 8
+    pad = torch.nn.functional.pad
+    qk = [part for t in (q, k) for part in _split(pad(t.float(),
+                                                      (0, dp - d)))]
+    vt = pad(v.float(), (0, dp - d, 0, s8 - s)).transpose(1, 2)
+    order = _key_order(s8).to(v.device)
+    return (*qk, *_split(vt[..., order].contiguous()))
 
 
 def _tma_rows(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -130,14 +201,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM or h > MAX_HEADS:
         raise ValueError(f"flash_attention kernel takes D <= {MAX_HEAD_DIM} "
                          f"and H <= {MAX_HEADS}, got H={h} D={d}")
-    width = d
+    work = None
     if q.dtype == torch.bfloat16:
         width, pad = _bf16_plan(d)
         q, k, v = (_tma_rows(t, pad) for t in (q, k, v))
+    else:
+        width, _ = _fp32_plan(d)
+        work = torch.empty(_fp32_work_elems(h, s, width),
+                           dtype=torch.float32, device=device)
     out = torch.empty((h, s, d), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         build.launch("flash_attention", _ARGTYPES, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), out.data_ptr(), h, s, d, width,
+                     v.data_ptr(), out.data_ptr(),
+                     None if work is None else work.data_ptr(), h, s, d, width,
                      int(causal), DTYPES[q.dtype],
                      torch.cuda.current_stream(device).cuda_stream)
     launches += 1

@@ -8,8 +8,9 @@ sweeps on the card and for the Llama-3-8B shape, and show that attention
 over the padded rows, computed here in fp32 with the true D and cropped,
 equals the plain version on the unpadded inputs and repro's jnp oracle,
 and that the wrapper hands the kernel the true D beside the planned
-width.  The kernel itself runs only on the card (``chip_smoke.py``
-phase 2)."""
+width (for fp32 inputs ``_fp32_plan``'s; ``test_torch_flash_fp32.py``
+has the rest of the fp32 side).  The kernel itself runs only on the card
+(``chip_smoke.py`` phase 2)."""
 import contextlib
 import importlib.util
 import types
@@ -122,7 +123,9 @@ def test_wrapper_passes_true_d_and_width(monkeypatch, dtype, d):
     q = torch.zeros((2, 3, d), dtype=dtype).as_subclass(_OnCard)
     flash_attention.flash_attention(q, q, q, causal=False)
     (args,) = launched
-    width = flash_attention._bf16_plan(d)[0] if dtype == torch.bfloat16 \
-        else d
-    assert args[4:] == (2, 3, d, width, 0,
+    bf16 = dtype == torch.bfloat16
+    plan = flash_attention._bf16_plan if bf16 else flash_attention._fp32_plan
+    assert args[5:] == (2, 3, d, plan(d)[0], 0,
                         flash_attention.DTYPES[dtype], 0)
+    # the fp32 kernel's split operands go to a work buffer; bf16 has none
+    assert (args[4] is None) == bf16
