@@ -18,11 +18,15 @@ and prints where the time went.  Phases, one line each (plus detail):
    the DP = 128 kernel of either dtype, the Llama shape's, spills);
 2. each kernel against its plain version on the card at ragged shapes
    (``masked_intersect`` and ``embedding_bag`` exact, ``segment_matmul``
-   within 1e-4, ``flash_attention`` within the reference tests' 2e-4 in
-   fp32 and 3e-2 in bf16, and per head within a relative error of 1e-4
-   and 1e-2); ``masked_intersect`` also at the main path's shape, with
-   its time, the plain version's time and the least time the card could
-   take (bound);
+   within 1e-4 and bit for bit across two calls, ``flash_attention``
+   within the reference tests' 2e-4 in fp32 and 3e-2 in bf16, and per
+   head within a relative error of 1e-4 and 1e-2); ``masked_intersect``
+   also at the main path's shape, with its time, the plain version's time
+   and the least time the card could take (bound); ``segment_matmul``'s
+   CSR build (``csr_by_node``) bit for bit against ``edges_by_node`` on
+   random, sorted, one-node and all-dropped ``dst``, and one
+   ``segment_matmul`` call shown to be one C call with no sort, search or
+   host read;
 3. the quickstart config and the spill probe on ``cuda`` and on ``cpu``:
    byte-identical answers and the reference's counters;
 4. the main path: ``planted_clique_graph(32768, 354000, 32, seed=0)`` with
@@ -41,7 +45,13 @@ and prints where the time went.  Phases, one line each (plus detail):
    last batch's inputs, beside its plain version, one PyTorch library
    call for the same function, and its bound (for fp32 attention, whose
    kernel splits each fp32 product into three tf32 tensor-core products,
-   the bound of those three, with the fp32 FMA bound beside it).
+   the bound of those three, with the fp32 FMA bound beside it), and a
+   ``torch.profiler`` split of one ``segment_matmul`` call in each dtype:
+   each kernel's device time against the call's wall time;
+7. the engine's ``merge_topk`` at k = 4,400, S = 2,050, B = 64 on rows
+   equal except in their last 3 words, with duplicates: equal to chained
+   stable sorts on the card, with its time and its peak device memory
+   above its inputs (at most 2 GiB).
 
 The line before the last is the kernels' JSON record (each kernel's fp32
 numbers, and its bf16 numbers under ``bf16`` where phase 6 runs both,
@@ -110,6 +120,12 @@ DLRM_DIM = 128
 LLAMA = dict(heads=32, kv_heads=8, seq=8192, head_dim=128, width=4096,
              vocab=128_256)
 COWORK_STEPS = 4
+# segment_matmul's CSR alone: every edge on one node, every edge dropped,
+# at the GraphSAGE cell's E and N
+CSR_FULL = dict(e=140_800, n=141_313)
+# merge_topk at a k the old [R, R, S] comparison could not hold (R = k + B)
+MERGE = dict(k=4400, batch=64, width=2050)
+MERGE_PEAK_BYTES = 2 * 2**30
 # the dtypes that phase 6 drives each kernel in (the DLRM table is fp32)
 COWORK_DTYPES = {"segment_matmul": ("fp32", "bf16"),
                  "embedding_bag": ("fp32",),
@@ -512,6 +528,79 @@ def sage_batch(sampler, step: int):
             torch.from_numpy(sub.edge_dst).cuda())
 
 
+def same_bits(name: str, dt: str, a, b, what: str) -> None:
+    """Two calls on the same inputs must agree bit for bit."""
+    import torch
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        fail(f"{name} {dt} {what}: two calls on the same inputs differ")
+
+
+def check_csr(rng) -> None:
+    """``segment_matmul``'s CSR build on the card (``csr_by_node``) equals
+    ``edges_by_node`` bit for bit, ``order`` and ``ptr``, on random
+    (some out of range) and sorted ``dst`` at every ragged shape, and on
+    every edge on one node and every edge dropped at the GraphSAGE cell's
+    size; then one ``segment_matmul`` call is one C call, with no sort or
+    search and no host read (CUDA sync debug mode "error")."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import segment_matmul as sm
+
+    cases = []
+    for (e, n, _) in SEGMENT_RAGGED:
+        dst = rng.integers(-1, n + 1, e, dtype=np.int32)
+        cases += [(f"random E={e} N={n}", dst, n),
+                  (f"sorted E={e} N={n}", np.sort(dst.clip(0, n - 1)), n)]
+    e, n = CSR_FULL["e"], CSR_FULL["n"]
+    cases += [(f"one node E={e} N={n}", np.full(e, n // 2, np.int32), n),
+              (f"all dropped E={e} N={n}",
+               rng.choice(np.array([-1, n, n + 5], np.int32), e), n)]
+    for what, dst, n in cases:
+        dst = torch.from_numpy(dst).cuda()
+        order, ptr = sm.csr_by_node(dst, n)
+        want_order, want_ptr = sm.edges_by_node(dst, n)
+        if not (torch.equal(order, want_order) and torch.equal(ptr, want_ptr)):
+            fail(f"csr_by_node {what}: differs from edges_by_node")
+    print(f"[2 kernel] segment_matmul CSR (csr_by_node) == edges_by_node "
+          f"bit for bit on {len(cases)} inputs: "
+          f"{', '.join(what for what, _, _ in cases)}")
+
+    msg = torch.ones((999, 13), device="cuda")
+    dst = torch.from_numpy(rng.integers(-1, 78, 999, dtype=np.int32)).cuda()
+    calls, real_launch = [], build.launch
+    banned = ("sort", "argsort", "searchsorted", "where", "arange")
+    saved = {name: getattr(torch, name) for name in banned}
+
+    def refuse(name):
+        def call(*args, **kwargs):
+            raise AssertionError(f"torch.{name} on the CUDA path")
+        return call
+
+    def counting(*args):
+        calls.append(args[0])
+        return real_launch(*args)
+
+    torch.cuda.synchronize()
+    try:
+        build.launch = counting
+        for name in banned:
+            setattr(torch, name, refuse(name))
+        torch.cuda.set_sync_debug_mode("error")
+        sm.segment_matmul(msg, dst, 77)
+    except (AssertionError, RuntimeError) as err:
+        fail(f"segment_matmul's CUDA path: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for name, fn in saved.items():
+            setattr(torch, name, fn)
+        build.launch = real_launch
+    if calls != ["segment_matmul"]:
+        fail(f"one segment_matmul call made the C calls {calls}")
+    print(f"[2 kernel] segment_matmul: one call = {len(calls)} C call, no "
+          f"torch.{'/'.join(banned)}, no host read")
+
+
 def phase_coworkload_kernels() -> dict:
     """Phase 2 for the co-workload kernels: ragged sweeps against the plain
     versions.  Returns {name: {dtype: errors}}."""
@@ -527,6 +616,7 @@ def phase_coworkload_kernels() -> dict:
     def normal(*shape):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
 
+    check_csr(rng)
     for dt, dtype in torch_dtypes().items():
         # segment_matmul: random destinations, some outside [0, N) (dropped)
         rec = records["segment_matmul"][dt] = {}
@@ -534,10 +624,12 @@ def phase_coworkload_kernels() -> dict:
             msg = normal(e, d).to(dtype)
             dst = torch.from_numpy(rng.integers(-1, n + 1, e, dtype=np.int32)
                                    ).cuda()
-            fold(rec, errors("segment_matmul", dt,
-                             ops.segment_matmul(msg, dst, n),
+            got = ops.segment_matmul(msg, dst, n)
+            fold(rec, errors("segment_matmul", dt, got,
                              ref.segment_matmul_ref(msg, dst, n),
                              f"E={e} N={n} D={d}"))
+            same_bits("segment_matmul", dt, got,
+                      ops.segment_matmul(msg, dst, n), f"E={e} N={n} D={d}")
         # embedding_bag: ids in range, as the contract has them
         rec = records["embedding_bag"][dt] = {}
         for (f, v, d, b) in EMBEDDING_RAGGED:
@@ -564,6 +656,80 @@ def phase_coworkload_kernels() -> dict:
     return records
 
 
+SPLIT_CALLS = 10
+# what one segment_matmul call puts on the card: the clearing of its
+# scratch, the CSR build's kernels, the sum
+SPLIT_KERNELS = ("Memset", "csr_count_kernel", "csr_scan_kernel",
+                 "csr_digit_scan_kernel", "csr_place_kernel",
+                 "segment_matmul_kernel")
+
+
+def segment_split(dt: str, call) -> None:
+    """``torch.profiler`` over ``SPLIT_CALLS`` calls, each followed by a
+    synchronize: each kernel's device time a call (the CSR build's and the
+    sum's, by name) against the call's wall time (host clock, call to
+    synchronize, median; the profiler's own cost included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(SPLIT_CALLS):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+    device_us = {}
+    for ev in prof.key_averages():
+        for stem in SPLIT_KERNELS:
+            if ev.device_time_total > 0 and stem in ev.key:
+                device_us[stem] = (device_us.get(stem, 0.0)
+                                   + ev.device_time_total / SPLIT_CALLS)
+    wall = statistics.median(walls)
+    host = host_enqueue_ms(call)
+    if not device_us:
+        print(f"[6 coworkload] segment_matmul {dt} profiler split: the "
+              f"profiler showed no device time (CUDA-event times above "
+              f"stand); wall {wall:.4f} ms a call; {host}")
+        return
+    total = sum(device_us.values())
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+        device_us.items(), key=lambda kv: -kv[1]))
+    print(f"[6 coworkload] segment_matmul {dt} profiler split, us of device "
+          f"time a call: {parts}; device {total / 1e3:.4f} ms of a "
+          f"{wall:.4f} ms wall (median of {SPLIT_CALLS}, profiler on); "
+          f"{host}")
+
+
+def host_enqueue_ms(call) -> str:
+    """The host's time to enqueue one call (no synchronize; mean of
+    ``SPLIT_CALLS`` back to back), and of it the time inside the C call
+    (the library's launches), timed around ``build.launch``."""
+    import torch
+    from repro_torch.kernels import build
+    real_launch, inside = build.launch, []
+
+    def timed(*args):
+        t = time.perf_counter()
+        real_launch(*args)
+        inside.append(time.perf_counter() - t)
+
+    torch.cuda.synchronize()
+    build.launch = timed
+    try:
+        t0 = time.perf_counter()
+        for _ in range(SPLIT_CALLS):
+            call()
+        enqueue = (time.perf_counter() - t0) / SPLIT_CALLS
+    finally:
+        build.launch = real_launch
+    torch.cuda.synchronize()
+    return (f"host enqueue {1e3 * enqueue:.4f} ms a call, of it the C call "
+            f"{1e3 * sum(inside) / SPLIT_CALLS:.4f}")
+
+
 def phase_coworkload(graph, ragged: dict) -> dict:
     """The co-workload path: batches from the ported pipeline through
     ``repro_torch.kernels.ops`` on the card, each held against the plain
@@ -576,7 +742,7 @@ def phase_coworkload(graph, ragged: dict) -> dict:
                                            TokenStream)
     from repro_torch.kernels import embedding_bag, flash_attention, ops, \
         ref, segment_matmul
-    from repro_torch.kernels.segment_matmul import edges_by_node
+    from repro_torch.kernels.segment_matmul import csr_by_node, edges_by_node
 
     dtypes = torch_dtypes()
     gen = torch.Generator(device="cuda")
@@ -715,9 +881,14 @@ def phase_coworkload(graph, ragged: dict) -> dict:
                 0, dst, msg.float()),
             bound_ms(msg.numel() * msg.element_size() + 4 * n * d_feat
                      + 4 * dst.numel(), msg.numel(), "fp32"))
-    sort_ms = cuda_ms(lambda: edges_by_node(dst, n), 20)
-    print(f"[6 coworkload] segment_matmul: of each call, the sort by dst "
-          f"(edges_by_node) takes {sort_ms:.4f} ms")
+    for dt, msg in msgs.items():
+        same_bits("segment_matmul", dt, ops.segment_matmul(msg, dst, n),
+                  ops.segment_matmul(msg, dst, n), "co-workload batch")
+        segment_split(dt, lambda: ops.segment_matmul(msg, dst, n))
+    print(f"[6 coworkload] segment_matmul CSR alone: the kernels' "
+          f"(csr_by_node) {cuda_ms(lambda: csr_by_node(dst, n), 20):.4f} ms, "
+          f"the plain CSR build (edges_by_node: torch.sort, searchsorted) "
+          f"{cuda_ms(lambda: edges_by_node(dst, n), 20):.4f} ms")
     flat = table.view(f * rows, d_emb)
     offsets = torch.arange(f, device="cuda") * rows
     time_call(
@@ -746,6 +917,67 @@ def phase_coworkload(graph, ragged: dict) -> dict:
     return records
 
 
+def merge_topk_plain(states, keys, k: int):
+    """``repro.core.engine.merge_topk`` as chained stable sorts: by the key,
+    then by state word S-1 down to word 0 (``jnp.lexsort``'s order), then
+    the same dedup and top-k."""
+    import torch
+    from repro_torch.core.api import NEG
+    lex = torch.sort(keys, stable=True).indices
+    for j in reversed(range(states.shape[1])):
+        lex = lex[torch.sort(states[lex, j], stable=True).indices]
+    ss, kk = states[lex], keys[lex]
+    dup = torch.cat([torch.zeros((1,), dtype=torch.bool, device=ss.device),
+                     (ss[1:] == ss[:-1]).all(dim=1) & (kk[1:] == kk[:-1])])
+    kk = torch.where(dup, NEG, kk)
+    top = torch.sort(kk, descending=True, stable=True).indices[:k]
+    top_keys = kk[top]
+    return torch.where((top_keys > NEG)[:, None], ss[top], 0), top_keys
+
+
+def phase_merge_topk() -> dict:
+    """The engine's merge_topk at k = 4,400 (R = k + B = 4,464 rows of
+    S = 2,050 words, equal except in their last 3 words, with duplicate
+    (state, key) pairs and NEG keys) against chained stable sorts; its
+    peak device memory above its inputs and its time."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import NEG
+    from repro_torch.core.engine import merge_topk
+
+    k, r, s = MERGE["k"], MERGE["k"] + MERGE["batch"], MERGE["width"]
+    rng = np.random.default_rng(7)
+    states = np.tile(rng.integers(-2**31, 2**31, s, dtype=np.int64)
+                     .astype(np.int32), (r, 1))
+    states[:, -3:] = rng.integers(-2, 2, (r, 3))
+    keys = rng.integers(0, 6, r).astype(np.int32)
+    keys[rng.random(r) < 0.1] = NEG
+    for dst, src in rng.integers(0, r, (r // 8, 2)):
+        states[dst], keys[dst] = states[src], keys[src]
+    states, keys = torch.from_numpy(states).cuda(), \
+        torch.from_numpy(keys).cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = merge_topk(states, keys, k)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    want = merge_topk_plain(states, keys, k)
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            fail(f"merge_topk k={k} S={s}: differs from chained stable sorts")
+    ms = cuda_ms(lambda: merge_topk(states, keys, k), 3, 1)
+    plain_ms = cuda_ms(lambda: merge_topk_plain(states, keys, k), 3, 1)
+    live = int((got[1] > NEG).sum())
+    print(f"[7 merge_topk] k={k} R={r} S={s}: equal to chained stable sorts "
+          f"({live} live keys), peak {peak / 2**20:.1f} MiB above its "
+          f"inputs, ms={ms:.3f} (chained sorts {plain_ms:.3f})")
+    if peak > MERGE_PEAK_BYTES:
+        fail(f"merge_topk k={k}: peak {peak} bytes above its inputs, over "
+             f"{MERGE_PEAK_BYTES}")
+    return dict(peak_bytes=peak, ms=ms)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -765,6 +997,7 @@ def main() -> int:
     phase_profile(comp, res)
     del comp, res
     cowork = phase_coworkload(planted_clique_graph(**FULL_GRAPH), ragged)
+    phase_merge_topk()
     kernels = [dict(
         name="masked_intersect", route="cuda",
         source="src/repro_torch/kernels/csrc/masked_intersect.cu",

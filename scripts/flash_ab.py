@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""Another revision against this one for the ``flash_attention`` kernel
-of one dtype (bf16 by default, or fp32), on one NVIDIA card, in one
-process.
+"""Another revision against this one for one kernel's wrapper, on one
+NVIDIA card, in one process: ``flash_attention`` (the default, in one
+dtype) or ``segment_matmul`` (in each dtype).
 
     git archive <revision> | tar -x -C artifacts/other
     python3 scripts/flash_ab.py --other artifacts/other [--dtype fp32]
+    python3 scripts/flash_ab.py --other artifacts/other --kernel segment_matmul
 
 ``--other`` is the root of a checkout of another revision of this repo (any
 from the one that added ``src/repro_torch/kernels/flash_attention.py`` on).
 Its ``repro_torch`` package is loaded under another name, so its wrapper
 builds its own kernel source into its own ``build/`` directory and calls
 its own C entry, whatever that entry's arguments.  The two wrappers are
-timed at the co-workload's Llama-3-8B shape, H=32 S=8192 D=128, causal,
-on the same seeded inputs of the chosen dtype.  They take turns (other,
-this, this, other), each turn the median of ``REPS`` calls timed with CUDA
-events, as ``chip_smoke.py`` times a kernel.  Both outputs are held
-against the plain version with ``chip_smoke.py``'s limits for that dtype
-first.  Prints the card's
-name and power limit, one line per turn, and last a JSON line with every
-turn's time, each kernel's mean of its two turns and the TFLOP/s of each
-(4*H*D*S(S+1)/2 flops).
+timed on the same seeded inputs:
+
+- ``flash_attention`` at the co-workload's Llama-3-8B shape, H=32 S=8192
+  D=128, causal, in the chosen dtype (``--dtype``, bf16 by default);
+- ``segment_matmul`` at the co-workload's GraphSAGE shape: messages
+  ``features[edge_src]`` and ``edge_dst`` of
+  ``NeighborSampler(planted_clique_graph(32768, 354000, 32, seed=0),
+  batch_nodes=512, fanout=(25, 10), d_feat=256)``'s first sample (E =
+  140,800, N = 141,313, D = 256), in fp32 and bf16 (or the one
+  ``--dtype`` names).
+
+They take turns (other, this, this, other), each turn the median of
+``REPS`` calls timed with CUDA events, as ``chip_smoke.py`` times a
+kernel.  Both outputs are held against the plain version with
+``chip_smoke.py``'s limits for that kernel and dtype first.  Prints the
+card's name and power limit, one line per turn, and last a JSON line with
+every turn's time and each wrapper's mean of its two turns (for attention
+also the TFLOP/s of each, 4*H*D*S(S+1)/2 flops).
 """
 from __future__ import annotations
 
@@ -35,7 +45,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-import chip_smoke  # noqa: E402  (cuda_ms, nvidia_smi, errors, fail)
+import chip_smoke  # noqa: E402  (cuda_ms, nvidia_smi, errors, fail, ...)
 
 H, S, D = 32, 8192, 128
 FLOPS = 4 * H * D * S * (S + 1) / 2
@@ -43,10 +53,10 @@ REPS = 20
 OTHER = "other_repro_torch"
 
 
-def load_other(root: Path):
-    """The other checkout's ``repro_torch.kernels.flash_attention``, as
-    ``other_repro_torch.kernels.flash_attention`` (the kernel modules
-    import each other relatively)."""
+def load_other(root: Path, kernel: str):
+    """The other checkout's ``repro_torch.kernels.<kernel>``, as
+    ``other_repro_torch.kernels.<kernel>`` (the kernel modules import each
+    other relatively)."""
     package = root.resolve() / "src" / "repro_torch"
     spec = importlib.util.spec_from_file_location(
         OTHER, package / "__init__.py",
@@ -54,59 +64,94 @@ def load_other(root: Path):
     module = importlib.util.module_from_spec(spec)
     sys.modules[OTHER] = module
     spec.loader.exec_module(module)
-    return importlib.import_module(f"{OTHER}.kernels.flash_attention")
+    return importlib.import_module(f"{OTHER}.kernels.{kernel}")
 
 
-def main() -> int:
+def attention_inputs(dtype):
     import torch
-    from repro_torch.kernels import flash_attention as fa
-
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--other", type=Path, required=True,
-                        help="root of a checkout of another revision")
-    parser.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16",
-                        help="q/k/v dtype (default bf16)")
-    args = parser.parse_args()
-    dtype = chip_smoke.torch_dtypes()[args.dtype]
-    if not torch.cuda.is_available():
-        chip_smoke.fail("no CUDA device")
-    print(chip_smoke.nvidia_smi("name,power.limit"))
-    other = load_other(args.other)
-
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    q, k, v = (torch.randn((H, S, D), generator=gen, device="cuda")
-               .to(dtype) for _ in range(3))
+    return tuple(torch.randn((H, S, D), generator=gen, device="cuda")
+                 .to(dtype) for _ in range(3))
 
-    def run_other():
-        return other.flash_attention(q, k, v)
 
-    def run_this():
-        return fa.flash_attention(q, k, v)
+def segment_inputs():
+    """The GraphSAGE cell's first sample: fp32 features, edge sources and
+    destinations on the card, and the padded node count."""
+    from repro_torch.data.pipeline import NeighborSampler
+    from repro_torch.data.synthetic_graphs import planted_clique_graph
+    sampler = NeighborSampler(planted_clique_graph(**chip_smoke.FULL_GRAPH),
+                              **chip_smoke.SAGE, seed=0)
+    return (*chip_smoke.sage_batch(sampler, 0), sampler.n_pad)
 
-    want = fa.flash_attention_plain(q, k, v)
+
+def take_turns(kernel: str, dt: str, run_other, run_this, want) -> dict:
+    """Check both outputs, then time other, this, this, other."""
     for what, run in (("other", run_other), ("this", run_this)):
-        errs = chip_smoke.errors("flash_attention", args.dtype, run(), want,
-                                 what)
-        print(f"{what}: max abs err {errs['max_abs_err']:.3g}, of a head "
-              f"relative {errs['max_rel_err']:.3g}")
-    del want
-
+        errs = chip_smoke.errors(kernel, dt, run(), want, what)
+        rel = (f", of a head relative {errs['max_rel_err']:.3g}"
+               if "max_rel_err" in errs else "")
+        print(f"{kernel} {dt} {what}: max abs err "
+              f"{errs['max_abs_err']:.3g}{rel}")
     turns = []
     for what in ("other", "this", "this", "other"):
         ms = chip_smoke.cuda_ms(run_other if what == "other" else run_this,
                                 REPS)
         turns.append((what, ms))
-        print(f"{what}: {ms:.4f} ms, {FLOPS / ms / 1e9:.1f} TFLOP/s")
+        rate = (f", {FLOPS / ms / 1e9:.1f} TFLOP/s"
+                if kernel == "flash_attention" else "")
+        print(f"{kernel} {dt} {what}: {ms:.4f} ms{rate}")
     mean = {w: statistics.mean(ms for t, ms in turns if t == w)
             for w in ("other", "this")}
-    print(json.dumps({
-        "shape": {"H": H, "S": S, "D": D, "causal": True},
-        "dtype": args.dtype,
-        "turns": [{"kernel": w, "ms": ms} for w, ms in turns],
-        "mean_ms": mean,
-        "tflop_s": {w: FLOPS / ms / 1e9 for w, ms in mean.items()},
-        "speedup": mean["other"] / mean["this"]}))
+    out = {"dtype": dt, "turns": [{"kernel": w, "ms": ms} for w, ms in turns],
+           "mean_ms": mean, "speedup": mean["other"] / mean["this"]}
+    if kernel == "flash_attention":
+        out["tflop_s"] = {w: FLOPS / ms / 1e9 for w, ms in mean.items()}
+    return out
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--other", type=Path, required=True,
+                        help="root of a checkout of another revision")
+    parser.add_argument("--kernel", default="flash_attention",
+                        choices=("flash_attention", "segment_matmul"),
+                        help="the wrapper to time (default flash_attention)")
+    parser.add_argument("--dtype", choices=("bf16", "fp32"),
+                        help="attention's q/k/v dtype (default bf16); for "
+                             "segment_matmul the messages' (default both)")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        chip_smoke.fail("no CUDA device")
+    print(chip_smoke.nvidia_smi("name,power.limit"))
+    other = load_other(args.other, args.kernel)
+    dtypes = chip_smoke.torch_dtypes()
+
+    if args.kernel == "flash_attention":
+        from repro_torch.kernels import flash_attention as fa
+        dt = args.dtype or "bf16"
+        q, k, v = attention_inputs(dtypes[dt])
+        results = [take_turns(
+            "flash_attention", dt, lambda: other.flash_attention(q, k, v),
+            lambda: fa.flash_attention(q, k, v),
+            fa.flash_attention_plain(q, k, v))]
+        shape = {"H": H, "S": S, "D": D, "causal": True}
+    else:
+        from repro_torch.kernels import segment_matmul as sm
+        feats, src, dst, n = segment_inputs()
+        results = []
+        for dt in ([args.dtype] if args.dtype else ["fp32", "bf16"]):
+            msg = feats.to(dtypes[dt])[src]
+            results.append(take_turns(
+                "segment_matmul", dt,
+                lambda: other.segment_matmul(msg, dst, n),
+                lambda: sm.segment_matmul(msg, dst, n),
+                sm.segment_matmul_plain(msg, dst, n)))
+        shape = {"E": int(dst.numel()), "N": n, "D": chip_smoke.SAGE["d_feat"]}
+    print(json.dumps({"kernel": args.kernel, "shape": shape,
+                      "results": results}))
     return 0
 
 

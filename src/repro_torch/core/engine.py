@@ -112,6 +112,10 @@ def _desc_order(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, descending=True, stable=True).indices
 
 
+#: elements of one tile of merge_topk's row comparison (a byte each)
+RANK_BUDGET = 1 << 27
+
+
 def merge_topk(states: torch.Tensor, keys: torch.Tensor, k: int):
     """Canonical top-k selection over result candidates: key descending,
     ties broken by the state words lexicographically ascending (signed
@@ -123,18 +127,27 @@ def merge_topk(states: torch.Tensor, keys: torch.Tensor, k: int):
     ``S + 1`` launches.  Here every pair of rows is compared at the first
     word where the two differ (then by key, then by original index, which
     is the lexsort's stability), and each row's rank is the number of rows
-    that precede it: an ``[R, R, S]`` comparison in a handful of launches.
+    that precede it.  The comparison runs over tiles of ``T`` rows against
+    all ``R``, a ``[T, R, S]`` block at a time with ``T·R·S`` at most
+    ``RANK_BUDGET`` (one row a tile at least), so its memory grows with
+    ``R·S`` and not with ``R²·S``; the main path's ``R = k + B = 67`` at
+    ``S = 2,050`` is one tile.
     """
-    r = states.shape[0]
+    r, s = states.shape
     idx = torch.arange(r, device=states.device)
-    differ = states[:, None, :] != states[None, :, :]           # [R, R, S]
-    first = torch.argmax(differ.to(torch.uint8), dim=-1, keepdim=True)
-    wi = torch.take_along_dim(states[:, None, :], first, dim=-1)[..., 0]
-    wj = torch.take_along_dim(states[None, :, :], first, dim=-1)[..., 0]
-    ki, kj = keys[:, None], keys[None, :]
-    by_key = (ki < kj) | ((ki == kj) & (idx[:, None] < idx[None, :]))
-    before = torch.where(differ.any(dim=-1), wi < wj, by_key)  # i before j
-    rank = before.sum(dim=0)                        # rows preceding each row
+    rows = max(1, RANK_BUDGET // (r * s))
+    rank = None
+    for lo in range(0, r, rows):
+        si, ii = states[lo:lo + rows, None, :], idx[lo:lo + rows, None]
+        differ = si != states[None, :, :]                       # [T, R, S]
+        first = torch.argmax(differ.view(torch.uint8), dim=-1, keepdim=True)
+        wi = torch.take_along_dim(si, first, dim=-1)[..., 0]
+        wj = torch.take_along_dim(states[None, :, :], first, dim=-1)[..., 0]
+        ki = keys[lo:lo + rows, None]
+        by_key = (ki < keys) | ((ki == keys) & (ii < idx))
+        before = torch.where(wi != wj, wi < wj, by_key)        # i before j
+        part = before.sum(dim=0)                # rows of the tile preceding j
+        rank = part if rank is None else rank + part
     lex = torch.empty_like(idx)
     lex[rank] = idx
     ss, kk = states[lex], keys[lex]
@@ -175,6 +188,17 @@ class Engine:
         a = comp.num_actions
         self.M = max(config.max_children or 0, a)
         self.B = config.batch
+        # the reference's lax.top_k raises these at its first step
+        if config.batch > config.pool_capacity:
+            raise ValueError(
+                f"EngineConfig: batch ({config.batch}) exceeds pool_capacity "
+                f"({config.pool_capacity}): a step dequeues batch states "
+                f"from the pool")
+        if self.M > self.B * a:
+            raise ValueError(
+                f"EngineConfig: max_children ({config.max_children}) exceeds "
+                f"batch * num_actions ({self.B} * {a}): a step selects "
+                f"max_children of that many children")
         self.C = config.pool_capacity
         self.S = comp.state_width
         self.k = config.k

@@ -9,13 +9,18 @@ reference drops it (its padding edges carry ``dst = -1``).  The name is the
 reference's (``repro.kernels.segment_matmul``), whose TPU kernel computes
 the sum as one-hot matrix products.
 
-On the card, :func:`segment_matmul` sorts the edges by ``dst`` (stable) and
-launches the hand-written Hopper kernel ``csrc/segment_matmul.cu``, which
-replaces ``repro/kernels/segment_matmul.py::_kernel``: one thread per
-(node, 16-byte column chunk) walks its node's edges in edge order and
-writes its sum once — no atomics, so the result does not depend on the
-launch.  The sum is bound by memory (the messages read once, the output
-written once); the source note has the detail.
+On the card, :func:`segment_matmul` makes one call into the hand-written
+Hopper library ``csrc/segment_matmul.cu``, which replaces
+``repro/kernels/segment_matmul.py::_kernel``.  That call launches, on
+PyTorch's current stream, the kernels that sort the edges by ``dst``
+(stable) into a CSR — a count, a scan, and a radix sort over the key bits
+that is skipped on reading a flag when ``dst`` comes sorted — and then the
+sum: one thread per (node, 16-byte column chunk) walks its node's edges in
+edge order and writes its sum once — no atomics, so the result does not
+depend on the launch.  The sum is bound by memory (the messages read once,
+the output written once); the source note has the detail.
+:func:`csr_by_node` runs the library's CSR build alone, so that the card
+can hold it against :func:`edges_by_node`, the same CSR in plain PyTorch.
 
 On the CPU it runs :func:`segment_matmul_plain`, the plain PyTorch version
 that the CPU tests use and that the card's smoke run compares the kernel
@@ -35,10 +40,17 @@ launches = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# pointers and the stream as c_void_p, sizes and the dtype as C ints
+# segment_matmul_launch(msg, dst, scratch, scratch_elems, out, E, N, D,
+# dtype, stream): pointers and the stream as c_void_p, the scratch size as
+# a C long long, the rest as C ints
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p)
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+# the CSR build's tiles, as csrc/segment_matmul.cu has them
+RADIX_TILE = 2048          # edges a radix tile (256 threads x 8)
+SCAN_TILE = 4096           # counters a block of the ptr scan
+DIGIT_BITS = 8
 
 
 def reset_launches() -> None:
@@ -57,35 +69,137 @@ def segment_matmul_plain(messages: torch.Tensor, dst: torch.Tensor,
     return out.index_add_(0, dst[keep], messages[keep].float())
 
 
+def _check_dst(dst: torch.Tensor, num_nodes: int) -> None:
+    if dst.dtype != torch.int32 or dst.dim() != 1:
+        raise TypeError(f"dst must be a 1-D int32 tensor, got {dst.dtype} "
+                        f"{tuple(dst.shape)}")
+    if num_nodes < 1:
+        raise ValueError(f"segment_matmul needs num_nodes >= 1, got "
+                         f"{num_nodes}")
+
+
 def _check(messages: torch.Tensor, dst: torch.Tensor, num_nodes: int) -> None:
     if messages.dtype not in DTYPES or messages.dim() != 2:
         raise TypeError(f"messages must be a 2-D float32 or bfloat16 tensor, "
                         f"got {messages.dtype} {tuple(messages.shape)}")
-    if dst.dtype != torch.int32 or dst.dim() != 1:
-        raise TypeError(f"dst must be a 1-D int32 tensor, got {dst.dtype} "
-                        f"{tuple(dst.shape)}")
+    _check_dst(dst, num_nodes)
     if dst.shape[0] != messages.shape[0]:
         raise ValueError(f"{dst.shape[0]} destinations for "
                          f"{messages.shape[0]} messages")
     if dst.device != messages.device:
         raise ValueError(f"dst is on {dst.device}, messages on "
                          f"{messages.device}")
-    if num_nodes < 1 or messages.shape[1] < 1:
-        raise ValueError(f"segment_matmul needs num_nodes, D >= 1, got "
-                         f"num_nodes={num_nodes} D={messages.shape[1]}")
+    if messages.shape[1] < 1:
+        raise ValueError(f"segment_matmul needs D >= 1, got "
+                         f"D={messages.shape[1]}")
 
 
 def edges_by_node(dst: torch.Tensor, num_nodes: int):
-    """The kernel's view of ``dst``: ``order`` (int32 [E]), the edges
-    sorted by destination, stable, and ``ptr`` (int32 [num_nodes + 1]),
-    so that node n's edges are ``order[ptr[n]:ptr[n + 1]]``.  Edges whose
-    ``dst`` lies outside ``[0, num_nodes)`` sort past ``ptr[num_nodes]``."""
+    """The CSR of ``dst`` in plain PyTorch: ``order`` (int32 [E]), the
+    edges sorted by destination, stable, and ``ptr`` (int32
+    [num_nodes + 1]), so that node n's edges are ``order[ptr[n]:ptr[n + 1]]``.
+    Edges whose ``dst`` lies outside ``[0, num_nodes)`` sort past
+    ``ptr[num_nodes]``.  The kernels' CSR (:func:`csr_by_node`) is held to
+    it."""
     key = torch.where((dst >= 0) & (dst < num_nodes), dst, num_nodes)
     key, order = torch.sort(key, stable=True)
     ptr = torch.searchsorted(
         key, torch.arange(num_nodes + 1, dtype=torch.int32,
                           device=dst.device), out_int32=True)
     return order.to(torch.int32), ptr
+
+
+def _csr_layout(e: int, num_nodes: int):
+    """Offsets into the CSR build's int32 scratch buffer, as
+    ``csrc/segment_matmul.cu``'s ``layout`` computes them: ``(order,
+    total)``; ``ptr`` is at 0."""
+    passes = -(-num_nodes.bit_length() // DIGIT_BITS)
+    tiles = -(-e // RADIX_TILE)
+    scan_tiles = -(-(num_nodes + 1) // SCAN_TILE)
+    order = (num_nodes + 1 + scan_tiles + 1
+             + passes * (1 << DIGIT_BITS) * (1 + tiles))
+    return order, order + 5 * e
+
+
+def csr_radix_plain(dst: torch.Tensor, num_nodes: int):
+    """The CSR build of ``csrc/segment_matmul.cu`` step for step in plain
+    PyTorch, on any device: keys (``dst`` in range, else ``num_nodes``),
+    their counts and the exclusive scan into ``ptr``; then ``order[e] = e``
+    if no key is smaller than the one before it, else the LSD radix sort of
+    the keys over 8-bit digits, pass by pass: per-(digit, tile) counts over
+    tiles of ``RADIX_TILE`` edges, their digit-major exclusive scan, and
+    each edge placed at its digit's offset plus its rank among the edges of
+    its tile with that digit.  Returns ``(order, ptr)`` as
+    :func:`edges_by_node` does."""
+    dev, e = dst.device, dst.shape[0]
+    key = torch.where((dst >= 0) & (dst < num_nodes), dst,
+                      num_nodes).long()
+    counts = torch.bincount(key, minlength=num_nodes + 1)
+    ptr = torch.cumsum(counts, 0) - counts
+    ptr = ptr.to(torch.int32)
+    edge = torch.arange(e, device=dev)
+    if e < 2 or bool((key[1:] >= key[:-1]).all()):
+        return edge.to(torch.int32), ptr
+    digits = 1 << DIGIT_BITS
+    tiles = -(-e // RADIX_TILE)
+    pad = tiles * RADIX_TILE - e
+    tile = torch.arange(tiles, device=dev)[:, None]
+    real = (tile * RADIX_TILE + torch.arange(RADIX_TILE, device=dev) < e
+            ).long()                                  # edges, not padding
+    for shift in range(0, num_nodes.bit_length(), DIGIT_BITS):
+        digit = (key >> shift) & (digits - 1)
+        # a tile's last slots hold padding, which sorts after its edges
+        padded = torch.cat([digit, digit.new_full((pad,), digits - 1)]
+                           ).view(tiles, RADIX_TILE)
+        hist = torch.zeros((digits, tiles), dtype=torch.long, device=dev)
+        hist.index_put_((padded, tile.expand_as(padded)), real,
+                        accumulate=True)
+        offsets = (torch.cumsum(hist.flatten(), 0)
+                   - hist.flatten()).view(digits, tiles)
+        sorted_digit, slot = torch.sort(padded, dim=1, stable=True)
+        start = torch.searchsorted(sorted_digit, sorted_digit)
+        rank = torch.arange(RADIX_TILE, device=dev) - start
+        dest = offsets[sorted_digit, tile] + rank
+        src = (tile * RADIX_TILE + slot).flatten()
+        dest, src = dest.flatten()[src < e], src[src < e]
+        key = key.new_empty(e).index_put_((dest,), key[src])
+        edge = edge.new_empty(e).index_put_((dest,), edge[src])
+    return edge.to(torch.int32), ptr
+
+
+def csr_by_node(dst: torch.Tensor, num_nodes: int):
+    """``(order, ptr)`` of ``dst`` as :func:`edges_by_node` defines them,
+    built on the card by the kernels that :func:`segment_matmul` runs
+    before its sum (one C call, no launch counted: it only exposes the CSR
+    for checking).  CPU tensors run :func:`csr_radix_plain`."""
+    _check_dst(dst, num_nodes)
+    device = dst.device
+    if device.type == "cpu":
+        return csr_radix_plain(dst, num_nodes)
+    scratch, order_at = _launch(None, dst, None, num_nodes, 0, 0)
+    return scratch[order_at:order_at + dst.shape[0]], \
+        scratch[:num_nodes + 1]
+
+
+def _launch(messages, dst, out, num_nodes, d, dtype):
+    """The library's one C call on ``dst``'s card: the CSR build into a
+    scratch buffer allocated here, then the sum into ``out`` unless it is
+    None.  Returns the scratch buffer and where ``order`` starts in it."""
+    device = dst.device
+    if device.type != "cuda":
+        raise ValueError(f"segment_matmul runs on cuda or cpu, not {device}")
+    if not dst.is_contiguous():
+        raise ValueError("segment_matmul kernel needs a contiguous dst")
+    e = dst.shape[0]
+    order_at, total = _csr_layout(e, num_nodes)
+    with torch.cuda.device(device):
+        scratch = torch.empty(total, dtype=torch.int32, device=device)
+        build.launch("segment_matmul", _ARGTYPES,
+                     None if messages is None else messages.data_ptr(),
+                     dst.data_ptr(), scratch.data_ptr(), total,
+                     None if out is None else out.data_ptr(), e, num_nodes,
+                     d, dtype, torch.cuda.current_stream(device).cuda_stream)
+    return scratch, order_at
 
 
 def segment_matmul(messages: torch.Tensor, dst: torch.Tensor,
@@ -99,17 +213,11 @@ def segment_matmul(messages: torch.Tensor, dst: torch.Tensor,
     device = messages.device
     if device.type == "cpu":
         return segment_matmul_plain(messages, dst, num_nodes)
-    if device.type != "cuda":
-        raise ValueError(f"segment_matmul runs on cuda or cpu, not {device}")
     if not messages.is_contiguous():
         raise ValueError("segment_matmul kernel needs contiguous messages")
-    d = messages.shape[1]
-    with torch.cuda.device(device):
-        order, ptr = edges_by_node(dst, num_nodes)
-        out = torch.empty((num_nodes, d), dtype=torch.float32, device=device)
-        build.launch("segment_matmul", _ARGTYPES, messages.data_ptr(),
-                     order.data_ptr(), ptr.data_ptr(), out.data_ptr(),
-                     num_nodes, d, DTYPES[messages.dtype],
-                     torch.cuda.current_stream(device).cuda_stream)
+    out = torch.empty((num_nodes, messages.shape[1]), dtype=torch.float32,
+                      device=device)
+    _launch(messages, dst, out, num_nodes, messages.shape[1],
+            DTYPES[messages.dtype])
     launches += 1
     return out

@@ -92,6 +92,74 @@ def test_edges_by_node_is_a_stable_csr_of_the_kept_edges():
     np.testing.assert_array_equal(order[ptr[n]:], dropped)
 
 
+def _dst_case(case, e, n):
+    """``dst`` for the CSR cases: random (some out of range), sorted, every
+    edge on one node, every edge dropped."""
+    rng = np.random.default_rng(e + n)
+    if case == "random":
+        return rng.integers(-1, n + 1, e, dtype=np.int32)
+    if case == "sorted":
+        return np.sort(rng.integers(0, n, e, dtype=np.int32))
+    if case == "one_node":
+        return np.full(e, n // 2, np.int32)
+    return rng.choice(np.array([-3, -1, n, n + 7], np.int32), e)
+
+
+def _assert_stable_csr(order, ptr, dst, n):
+    """Node v's edges are order[ptr[v]:ptr[v+1]], in edge order; dropped
+    edges come after, in edge order."""
+    assert order.dtype == ptr.dtype == torch.int32
+    assert order.shape == dst.shape and ptr.shape == (n + 1,)
+    order, ptr = order.numpy(), ptr.numpy()
+    assert ptr[0] == 0
+    for v in np.unique(dst[(dst >= 0) & (dst < n)]):
+        np.testing.assert_array_equal(order[ptr[v]:ptr[v + 1]],
+                                      np.nonzero(dst == v)[0])
+    np.testing.assert_array_equal(np.diff(ptr),
+                                  np.bincount(dst[(dst >= 0) & (dst < n)],
+                                              minlength=n))
+    np.testing.assert_array_equal(order[ptr[n]:],
+                                  np.nonzero((dst < 0) | (dst >= n))[0])
+
+
+@pytest.mark.parametrize("case,e,n", [("sorted", 500, 40),
+                                      ("one_node", 140_800, 141_313),
+                                      ("dropped", 300, 20)])
+def test_edges_by_node_on_sorted_one_node_and_dropped_dst(case, e, n):
+    """What the card's csr_by_node is held to, on the inputs its kernels
+    treat apart: sorted keys (no radix pass), a single node's segment as
+    long as the GraphSAGE cell's E, no kept edge."""
+    dst = _dst_case(case, e, n)
+    order, ptr = segment_matmul.edges_by_node(torch.from_numpy(dst), n)
+    _assert_stable_csr(order, ptr, dst, n)
+    if case != "random":
+        assert int(ptr[n]) == (0 if case == "dropped" else e)
+
+
+CSR_SHAPES = [(64, 16), (300, 50), (1024, 128), (1, 1), (999, 77),
+              (5000, 3000), (9000, 70_000), (4099, 2 ** 24)]
+
+
+@pytest.mark.parametrize("case", ["random", "sorted", "one_node", "dropped"])
+@pytest.mark.parametrize("e,n", CSR_SHAPES)
+def test_csr_radix_scheme_equals_edges_by_node(case, e, n):
+    """The kernels' CSR build in plain PyTorch (flag, counts and scan, LSD
+    radix passes over 8-bit digits and 2,048-edge tiles): one to three
+    passes, one to five tiles, the last one ragged."""
+    dst = torch.from_numpy(_dst_case(case, e, n))
+    got = segment_matmul.csr_radix_plain(dst, n)
+    want = segment_matmul.edges_by_node(dst, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_csr_by_node_on_cpu_runs_the_radix_scheme():
+    dst = torch.from_numpy(_dst_case("random", 3000, 600))
+    order, ptr = segment_matmul.csr_by_node(dst, 600)
+    _assert_stable_csr(order, ptr, dst.numpy(), 600)
+    with pytest.raises(TypeError):
+        segment_matmul.csr_by_node(dst.long(), 600)
+
+
 # ----------------------------------------------------------- embedding_bag
 @pytest.mark.parametrize("f,v,d,b", [(5, 37, 8, 9), (40, 1000, 32, 16),
                                      (1, 8, 128, 3)])

@@ -102,6 +102,44 @@ def test_merge_topk_collapses_duplicate_pairs():
     assert got_s.tolist() == [[0, 5], [1, 2], [0, 0]]
 
 
+def _near_equal_rows(seed, r, s):
+    """Rows equal except in their last 3 words, with duplicate (state, key)
+    pairs, key ties and NEG keys: every pair is ordered deep in the row."""
+    rng = np.random.default_rng(seed)
+    states = np.tile(rng.integers(-2**31, 2**31, s, dtype=np.int64)
+                     .astype(np.int32), (r, 1))
+    states[:, -3:] = rng.integers(-2, 2, (r, 3))
+    keys = rng.integers(0, 6, r).astype(np.int32)
+    keys[rng.random(r) < 0.1] = NEG
+    for dst, src in rng.integers(0, r, (r // 8, 2)):
+        states[dst], keys[dst] = states[src], keys[src]
+    return states, keys
+
+
+def _assert_merge_like_reference(states, keys, k):
+    want_s, want_k = ref_engine.merge_topk(jnp.asarray(states),
+                                           jnp.asarray(keys), k)
+    got_s, got_k = engine.merge_topk(torch.from_numpy(states),
+                                     torch.from_numpy(keys), k)
+    assert got_k.numpy().tobytes() == np.asarray(want_k).tobytes()
+    assert got_s.numpy().tobytes() == np.asarray(want_s).tobytes()
+
+
+@pytest.mark.parametrize("k", [1024, 2000])
+def test_merge_topk_matches_reference_at_large_k(k):
+    """R = k + B candidates (B = 64), more than one tile of the default
+    budget at S = 64."""
+    _assert_merge_like_reference(*_near_equal_rows(k, k + 64, 64), k)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 40])
+def test_merge_topk_over_many_tiles_matches_reference(rows, monkeypatch):
+    """A tile budget forced down to ``rows`` rows a tile."""
+    r, s = 131, 9
+    monkeypatch.setattr(engine, "RANK_BUDGET", rows * r * s)
+    _assert_merge_like_reference(*_near_equal_rows(rows, r, s), 50)
+
+
 # ------------------------------------------------------------- tie order
 def test_equal_priorities_dequeue_like_lax_top_k():
     """A pool whose priorities tie across far more than B slots: which
@@ -211,3 +249,22 @@ def test_engine_config_mirrors_reference_fields():
     names = [f.name for f in dataclasses.fields(engine.EngineConfig)]
     assert names == [f.name for f in
                      dataclasses.fields(ref_engine.EngineConfig)]
+
+
+@pytest.mark.parametrize("graph_fn,args,cfg", [
+    ("skewed_graph", (100, 249, 1.0), dict(k=5, batch=64, pool_capacity=33)),
+    ("powerlaw_graph", (20, 5, 63),
+     dict(k=17, batch=1, pool_capacity=16, max_children=40))],
+    ids=["batch>pool_capacity", "max_children>batch*num_actions"])
+def test_config_the_reference_rejects_raises_value_error(graph_fn, args, cfg):
+    """The two configs whose first step makes the reference's lax.top_k
+    raise ValueError: the port raises it too, when the engine is made."""
+    ref = ref_engine.Engine(ref_make_clique(getattr(ref_gen, graph_fn)(*args)),
+                            ref_engine.EngineConfig(**cfg))
+    with pytest.raises(ValueError):
+        ref.run()
+    comp = make_clique_computation(getattr(gen, graph_fn)(*args),
+                                   device="cpu")
+    field = "batch" if "max_children" not in cfg else "max_children"
+    with pytest.raises(ValueError, match=field):
+        engine.Engine(comp, engine.EngineConfig(**cfg))
