@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, drives the port's
-two paths — single-device maximum-clique discovery, and the co-workload
+paths — single-device maximum-clique discovery one super-step a host read
+and in macro-steps, labeled subgraph isomorphism, and the co-workload
 path from the data pipeline through the float kernels — at full width,
 and prints where the time went.  Phases, one line each (plus detail):
 
@@ -27,8 +28,11 @@ and prints where the time went.  Phases, one line each (plus detail):
    random, sorted, one-node and all-dropped ``dst``, and one
    ``segment_matmul`` call shown to be one C call with no sort, search or
    host read;
-3. the quickstart config and the spill probe on ``cuda`` and on ``cpu``:
-   byte-identical answers and the reference's counters;
+3. the quickstart config, the spill probe (at ``steps_per_sync`` 1 and
+   16) and a small iso run through the masked kernel (the reference's
+   ``tests/test_kernels.py`` case, at ``steps_per_sync`` 1 and 16) on
+   ``cuda`` and on ``cpu``: byte-identical answers, every counter equal,
+   and the reference's counters;
 4. the main path: ``planted_clique_graph(32768, 354000, 32, seed=0)`` with
    ``EngineConfig(k=3, batch=64, pool_capacity=16384)`` must find the
    planted 32-clique, and every kernel of the path must have launched;
@@ -51,11 +55,34 @@ and prints where the time went.  Phases, one line each (plus detail):
 7. the engine's ``merge_topk`` at k = 4,400, S = 2,050, B = 64 on rows
    equal except in their last 3 words, with duplicates: equal to chained
    stable sorts on the card, with its time and its peak device memory
-   above its inputs (at most 2 GiB).
+   above its inputs (at most 2 GiB);
+8. the main path of phase 4 in macro-steps (``steps_per_sync=16``), in
+   the same process: one macro-step is first shown to enqueue its 16
+   steps with no host read (CUDA sync debug mode "error"); the run's
+   answer and every counter but ``host_syncs`` must equal phase 4's, with
+   ``host_syncs`` below ``steps``; its wall, ms a step, spans, peak memory
+   and ``host_syncs``; then a profiled rerun: the idle share beside phase
+   5's, and ``masked_intersect`` launches counted in the trace by kernel
+   name beside ``steps`` (the difference is the no-op steps a macro-step
+   launches after its loop's exit; fewer launches than steps fails);
+9. labeled isomorphism at full width: ``labeled_graph(32768, 354000, 29,
+   seed=0)``, ``build_iso_index(max_hops=3)`` on the card (set-up), the
+   4G query of ``benchmarks/bench_iso.py`` labelled from one induced 4G
+   embedding that numpy finds in the graph, ``EngineConfig(k=3, batch=64,
+   pool_capacity=16384, spill="host")``; four runs (the masked kernel's
+   path and the ``batched`` path, each at ``steps_per_sync`` 1 and 16)
+   must agree byte for byte with equal counters (``host_syncs`` between
+   equal T), the best result must be an induced, label-preserving
+   embedding (checked on the host with numpy), and the kernel's path must
+   launch ``masked_intersect`` at least once a step; set-up, steps, ms a
+   step, spans, and the masked kernel's time at this shape.
 
 The line before the last is the kernels' JSON record (each kernel's fp32
 numbers, and its bf16 numbers under ``bf16`` where phase 6 runs both,
-each with its own launch count); the last line is
+each with its own launch count; ``masked_intersect``'s mask-free numbers
+from phases 2 and 4, its masked form's at the iso shape under ``masked``
+with phase 9's launches, and the launches of each discovery path under
+``launches_by_path``); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result line.  Without a CUDA device, or without the repository's
 ``src/repro_torch`` beside this file, it fails at once.
@@ -89,12 +116,31 @@ QUICKSTART_CASES = {
 }
 COUNTERS = ("steps", "candidates", "expanded", "pruned", "spilled",
             "refilled", "late_pruned", "syncs", "host_syncs")
+# super-steps a host read in the macro-step runs (phases 3, 8, 9)
+MACRO_T = 16
+# tests/test_kernels.py::_iso_run's case, with the reference package's
+# answer and counters (CPU JAX)
+ISO_SMALL_GRAPH = dict(n=90, m=300, n_labels=3, seed=4)
+ISO_SMALL_QUERY = ([(0, 1), (1, 2), (2, 3)], [0, 1, 0, 2])
+ISO_SMALL_CFG = dict(k=3, batch=32, pool_capacity=4096, max_steps=20000)
+ISO_SMALL_WANT = dict(steps=8, candidates=245, expanded=100, pruned=145,
+                      spilled=0, refilled=0, late_pruned=0)
+ISO_SMALL_KEYS = [42, 37, 37]
+# phase 9 (PERF.md, "Cells"): the clique cell's MiCo cut with MiCo's 29
+# vertex labels, bench_iso.py's index depth and 4G query
+ISO_GRAPH = dict(n=32768, m=354_000, n_labels=29, seed=0)
+ISO_HOPS = 3
+ISO_4G = [(0, 1), (1, 2), (2, 3), (1, 3)]
+ISO_ENGINE = dict(k=3, batch=64, pool_capacity=16384, spill="host")
 
 # masked_intersect (B, N, W): ragged edges in every dimension (the sweeps
 # of tests/test_kernels.py among them), then the main path's call shape
 RAGGED_SHAPES = ((1, 1, 1), (1, 16, 1), (5, 257, 1), (7, 1, 2), (13, 100, 7),
                  (32, 300, 4), (8, 128, 32), (67, 1000, 33))
 MAIN_SHAPE = (64, 32768, 1024)
+
+# the scoring kernel's name in a profiler trace (csrc/masked_intersect.cu)
+MI_KERNEL = "masked_intersect_kernel"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 POPC_PER_CLOCK_PER_SM = 16       # CUDA C++ Programming Guide, CC 9.0
@@ -331,31 +377,65 @@ def phase_kernels(env: dict) -> dict:
     return record
 
 
+def same_run(what: str, a, b, counters=COUNTERS) -> None:
+    """Two engine results must agree byte for byte, and on ``counters``."""
+    if a.result_keys.tobytes() != b.result_keys.tobytes() or \
+            a.result_states.tobytes() != b.result_states.tobytes():
+        fail(f"{what}: results differ")
+    for name in counters:
+        if getattr(a, name) != getattr(b, name):
+            fail(f"{what}: {name} {getattr(a, name)} != {getattr(b, name)}")
+
+
 def phase_quickstart_parity():
     from repro_torch.core.clique import make_clique_computation
     from repro_torch.core.engine import Engine, EngineConfig
-    from repro_torch.data.synthetic_graphs import planted_clique_graph
+    from repro_torch.core.iso import build_iso_index, make_iso_computation
+    from repro_torch.data.synthetic_graphs import (labeled_graph,
+                                                   planted_clique_graph)
 
     g = planted_clique_graph(**QUICKSTART_GRAPH)
-    for case, (cfg, want) in QUICKSTART_CASES.items():
+    cases = dict(QUICKSTART_CASES)
+    cfg, want = QUICKSTART_CASES["spill_probe"]
+    cases[f"spill_probe T={MACRO_T}"] = (dict(cfg, steps_per_sync=MACRO_T),
+                                         want)
+    for case, (cfg, want) in cases.items():
         res = {}
         for device in ("cuda", "cpu"):
             comp = make_clique_computation(g, device=device)
             res[device] = Engine(comp, EngineConfig(**cfg)).run()
-        cu, cpu = res["cuda"], res["cpu"]
-        if cu.result_keys.tobytes() != cpu.result_keys.tobytes() or \
-                cu.result_states.tobytes() != cpu.result_states.tobytes():
-            fail(f"{case}: cuda and cpu results differ")
-        for name in COUNTERS:
-            if getattr(cu, name) != getattr(cpu, name):
-                fail(f"{case}: {name} cuda={getattr(cu, name)} "
-                     f"cpu={getattr(cpu, name)}")
+        cu = res["cuda"]
+        same_run(f"{case} cuda against cpu", cu, res["cpu"])
         got = {name: getattr(cu, name) for name in want}
         if got != want or list(cu.result_keys) != [9, 8, 8]:
             fail(f"{case}: counters {got} keys {list(cu.result_keys)}, "
                  f"reference {want} keys [9, 8, 8]")
         print(f"[3 parity] {case}: cuda == cpu byte for byte, keys "
-              f"{[int(x) for x in cu.result_keys]}, counters {got}")
+              f"{[int(x) for x in cu.result_keys]}, counters {got}, "
+              f"host_syncs {cu.host_syncs}")
+
+    g = labeled_graph(**ISO_SMALL_GRAPH)
+    index = {device: build_iso_index(g, 3, device=device)
+             for device in ("cuda", "cpu")}
+    if index["cuda"].tobytes() != index["cpu"].tobytes():
+        fail("iso index: cuda and cpu differ")
+    for t in (1, MACRO_T):
+        res = {}
+        for device in ("cuda", "cpu"):
+            comp = make_iso_computation(g, *ISO_SMALL_QUERY, index[device],
+                                        use_pallas=True, device=device)
+            res[device] = Engine(comp, EngineConfig(
+                **ISO_SMALL_CFG, steps_per_sync=t)).run()
+        cu = res["cuda"]
+        same_run(f"iso T={t} cuda against cpu", cu, res["cpu"])
+        got = {name: getattr(cu, name) for name in ISO_SMALL_WANT}
+        keys = [int(x) for x in cu.result_keys]
+        if got != ISO_SMALL_WANT or keys != ISO_SMALL_KEYS:
+            fail(f"iso T={t}: counters {got} keys {keys}, reference "
+                 f"{ISO_SMALL_WANT} keys {ISO_SMALL_KEYS}")
+        print(f"[3 parity] iso (masked kernel) T={t}: index and run cuda == "
+              f"cpu byte for byte, keys {keys}, counters {got}, host_syncs "
+              f"{cu.host_syncs}")
 
 
 def phase_main_path() -> int:
@@ -365,7 +445,7 @@ def phase_main_path() -> int:
     from repro_torch.core.engine import Engine, EngineConfig
     from repro_torch.data.synthetic_graphs import planted_clique_graph
     from repro_torch.kernels import masked_intersect as mi
-    from repro_torch.obs import Observability, aggregate, format_table
+    from repro_torch.obs import Observability, format_table
 
     t0 = time.perf_counter()
     g = planted_clique_graph(**FULL_GRAPH)
@@ -393,13 +473,8 @@ def phase_main_path() -> int:
           f"wall={wall_s:.3f}s ms_per_step={1e3 * wall_s / res.steps:.3f} "
           f"masked_intersect_launches={launches} "
           f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
-    spans = obs.tracer.spans()
-    agg = aggregate(spans)
-    parts = {name: round(1e3 * agg[name]["total_s"] / res.steps, 4)
-             for name in ("engine.device_compute", "engine.host_sync",
-                          "engine.spill", "engine.refill") if name in agg}
-    print(f"[4 main] ms per step by span: {parts}")
-    print(format_table(spans, wall_s=wall_s))
+    print(f"[4 main] ms per step by span: {span_ms(obs, res.steps)}")
+    print(format_table(obs.tracer.spans(), wall_s=wall_s))
     if int(res.result_keys[0]) != FULL_GRAPH["clique_size"]:
         fail(f"best clique size {int(res.result_keys[0])}, planted "
              f"{FULL_GRAPH['clique_size']}")
@@ -413,10 +488,11 @@ def phase_main_path() -> int:
 
 def device_busy(trace_path: str):
     """Device time from a profiler trace: the union of kernel, copy and
-    set intervals (s), and the summed time of each kernel name (ms)."""
+    set intervals (s), the summed time of each kernel name (ms), and the
+    number of launches of each kernel name (the full name)."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    spans, by_name = [], {}
+    spans, by_name, counts = [], {}, {}
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in (
                 "kernel", "gpu_memcpy", "gpu_memset"):
@@ -424,6 +500,7 @@ def device_busy(trace_path: str):
             if e["cat"] == "kernel":
                 name = e["name"][:60]
                 by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
+                counts[e["name"]] = counts.get(e["name"], 0) + 1
             else:
                 by_name[e["cat"]] = by_name.get(e["cat"], 0.0) + e["dur"] / 1e3
     busy, end = 0.0, float("-inf")
@@ -431,37 +508,287 @@ def device_busy(trace_path: str):
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy / 1e6, by_name        # trace times are in us
+    return busy / 1e6, by_name, counts        # trace times are in us
 
 
-def phase_profile(comp, want) -> None:
-    """The main path once more under torch.profiler: the device's busy and
-    idle share of the run's wall time, and the kernels that take it."""
+def profiled_run(eng):
+    """``eng.run()`` under torch.profiler: (result, wall s, device busy s,
+    device ms by kernel name, launches by kernel name)."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.engine import Engine, EngineConfig
-
-    eng = Engine(comp, EngineConfig(**FULL_ENGINE))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = eng.run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    if res.result_states.tobytes() != want.result_states.tobytes() or \
-            res.steps != want.steps:
-        fail("the profiled run differs from the main-path run")
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/trace.json"
         prof.export_chrome_trace(path)
-        busy_s, by_name = device_busy(path)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        busy_s, by_name, counts = device_busy(path)
+    return res, wall_s, busy_s, by_name, counts
+
+
+def kernel_launches(counts: dict, stem: str) -> int:
+    """Launches in a trace of the kernels whose name contains ``stem``."""
+    return sum(n for name, n in counts.items() if stem in name)
+
+
+def print_top(by_name: dict, steps: int) -> None:
+    """The ten kernels (or copies) that took the most device time."""
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:10.3f} ms  {ms / steps:8.4f} ms/step  {name}")
+
+
+def phase_profile(comp, want) -> float:
+    """The main path once more under torch.profiler: the device's busy and
+    idle share of the run's wall time, and the kernels that take it.
+    Returns the idle share."""
+    from repro_torch.core.engine import Engine, EngineConfig
+
+    res, wall_s, busy_s, by_name, counts = profiled_run(
+        Engine(comp, EngineConfig(**FULL_ENGINE)))
+    if res.result_states.tobytes() != want.result_states.tobytes() or \
+            res.steps != want.steps:
+        fail("the profiled run differs from the main-path run")
+    idle = 1 - busy_s / wall_s
     print(f"[5 profile] wall={wall_s:.3f}s (profiler on) "
-          f"device_busy={busy_s:.3f}s "
-          f"idle_share={1 - busy_s / wall_s:.3f} steps={res.steps}")
-    for name, ms in top:
-        print(f"  {ms:10.3f} ms  {ms / res.steps:8.4f} ms/step  {name}")
+          f"device_busy={busy_s:.3f}s idle_share={idle:.3f} "
+          f"steps={res.steps} masked_intersect launches in the trace="
+          f"{kernel_launches(counts, MI_KERNEL)}")
+    print_top(by_name, res.steps)
+    return idle
+
+
+def check_no_host_read(eng, tag: str) -> None:
+    """One macro-step of ``eng`` (``steps_per_sync`` = T > 1) enqueued
+    under CUDA sync debug mode "error": a host read between two of its
+    inner steps (``.item()``, ``.tolist()``, ``.cpu()``, ``nonzero``, a
+    mask index) raises there.  The run's own stats read comes after."""
+    import torch
+    st = eng.start()
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        eng._macro_impl(st.pool_states, st.pool_prio, st.pool_ub,
+                        st.result_states, st.result_keys, eng.T,
+                        len(st.vpq) > 0)
+    except RuntimeError as err:
+        fail(f"{tag}: a macro-step reads the device from the host: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    st.vpq.close()
+    print(f"[{tag}] one macro-step of {eng.T} inner steps enqueued with no "
+          f"host read (sync debug mode 'error')")
+
+
+def span_ms(obs, steps: int) -> dict:
+    """ms per step in each of the engine's spans."""
+    from repro_torch.obs import aggregate
+    agg = aggregate(obs.tracer.spans())
+    return {name: round(1e3 * agg[name]["total_s"] / steps, 4)
+            for name in ("engine.device_compute", "engine.host_sync",
+                         "engine.spill", "engine.refill") if name in agg}
+
+
+def phase_macro_path(comp, want, idle_t1: float) -> dict:
+    """Phase 4's path in macro-steps of ``MACRO_T``: the same answer and
+    counters but ``host_syncs``; then a profiled rerun, the launches of
+    the scoring kernel counted in its trace.  Returns the launch counts."""
+    import torch
+    from repro_torch.core.engine import Engine, EngineConfig
+    from repro_torch.kernels import masked_intersect as mi
+    from repro_torch.obs import Observability
+
+    cfg = dict(FULL_ENGINE, steps_per_sync=MACRO_T)
+    check_no_host_read(Engine(comp, EngineConfig(**cfg)), "8 macro")
+    obs = Observability()
+    eng = Engine(comp, EngineConfig(**cfg, observe=True, observability=obs))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mi.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = mi.launches
+    same_run(f"phase 8 (T={MACRO_T}) against phase 4 (T=1)", res, want,
+             [c for c in COUNTERS if c != "host_syncs"])
+    if not res.host_syncs < res.steps:
+        fail(f"T={MACRO_T}: {res.host_syncs} host syncs in {res.steps} steps")
+    print(f"[8 macro] T={MACRO_T}: keys={[int(x) for x in res.result_keys]} "
+          f"equal to phase 4 with every counter but host_syncs; "
+          f"steps={res.steps} host_syncs={res.host_syncs} (phase 4: "
+          f"{want.host_syncs}) wall={wall_s:.3f}s "
+          f"ms_per_step={1e3 * wall_s / res.steps:.3f} "
+          f"masked_intersect_launches={launches} "
+          f"no_op_steps={launches - res.steps} "
+          f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
+    print(f"[8 macro] ms per step by span: {span_ms(obs, res.steps)}")
+
+    prof_res, wall_s, busy_s, by_name, counts = profiled_run(
+        Engine(comp, EngineConfig(**cfg)))
+    same_run("phase 8's profiled rerun", prof_res, res)
+    traced = kernel_launches(counts, MI_KERNEL)
+    print(f"[8 macro] profiled rerun: wall={wall_s:.3f}s (profiler on) "
+          f"device_busy={busy_s:.3f}s idle_share={1 - busy_s / wall_s:.3f} "
+          f"(phase 5, T=1: {idle_t1:.3f}) steps={res.steps} "
+          f"{MI_KERNEL} launches in the trace={traced} "
+          f"(no-op steps {traced - res.steps})")
+    print_top(by_name, res.steps)
+    if traced < res.steps:
+        fail(f"the trace shows {traced} {MI_KERNEL} launches in "
+             f"{res.steps} steps")
+    return launches
+
+
+def induced_4g(g, seed: int):
+    """One induced embedding of the 4G query (``ISO_4G``: a triangle 1-2-3
+    with 0 hanging on 1) in ``g``, found by numpy from ``seed``: the
+    vertices in query order."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    for v1 in rng.permutation(g.n):
+        nb1 = g.neighbors(v1)
+        for v2 in nb1:
+            for v3 in np.intersect1d(nb1, g.neighbors(v2)):
+                for v0 in nb1:
+                    if v0 not in (v2, v3) and not g.has_edge(v0, v2) and \
+                            not g.has_edge(v0, v3):
+                        return [int(v) for v in (v0, v1, v2, v3)]
+    fail("the graph holds no induced 4G")
+
+
+def check_embedding(g, q_edges, q_labels, mapping, key: int) -> None:
+    """``mapping`` (data vertex per query vertex) is an induced,
+    label-preserving embedding whose score (the sum of degrees) is
+    ``key``; checked on the host with numpy."""
+    import numpy as np
+    nq = len(q_labels)
+    if len(set(mapping)) != nq or min(mapping) < 0:
+        fail(f"iso result {mapping} is not injective")
+    if [int(g.labels[v]) for v in mapping] != list(q_labels):
+        fail(f"iso result {mapping} has labels "
+             f"{[int(g.labels[v]) for v in mapping]}, query {q_labels}")
+    edges = {frozenset(e) for e in q_edges}
+    for a in range(nq):
+        for b in range(a + 1, nq):
+            if g.has_edge(mapping[a], mapping[b]) != \
+                    (frozenset((a, b)) in edges):
+                fail(f"iso result {mapping} is not an induced 4G: edge "
+                     f"({a}, {b})")
+    if int(np.sum(g.degrees[mapping])) != key:
+        fail(f"iso result {mapping}: degree sum "
+             f"{int(np.sum(g.degrees[mapping]))}, key {key}")
+
+
+def phase_iso(env: dict) -> dict:
+    """Labeled isomorphism at full width: the masked kernel's path and the
+    ``batched`` path, each at T = 1 and ``MACRO_T``, byte for byte alike;
+    the best results checked on the host; the masked kernel timed at this
+    path's call shape.  Returns the kernel path's launches and times."""
+    import numpy as np
+    import torch
+    from repro_torch.core.bitset import eye_table, to_tensor
+    from repro_torch.core.engine import Engine, EngineConfig
+    from repro_torch.core.iso import build_iso_index, make_iso_computation
+    from repro_torch.data.synthetic_graphs import labeled_graph
+    from repro_torch.kernels import masked_intersect as mi
+    from repro_torch.obs import Observability
+
+    t0 = time.perf_counter()
+    g = labeled_graph(**ISO_GRAPH)
+    embedding = induced_4g(g, ISO_GRAPH["seed"])
+    q_labels = [int(g.labels[v]) for v in embedding]
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = build_iso_index(g, ISO_HOPS, device="cuda")
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    print(f"[9 iso] N={g.n} edges={g.num_edges} labels={g.n_labels} "
+          f"graph+query={graph_s:.2f}s index={index_s:.2f}s "
+          f"index {index.shape}; 4G query labels {q_labels} from the "
+          f"induced embedding {embedding}")
+
+    runs, launches = {}, {}
+    for path, kw in (("kernel", dict(use_pallas=True)), ("batched", {})):
+        t0 = time.perf_counter()
+        comp = make_iso_computation(g, ISO_4G, q_labels, index,
+                                    device="cuda", **kw)
+        torch.cuda.synchronize()
+        comp_s = time.perf_counter() - t0
+        for t in (1, MACRO_T):
+            cfg = dict(ISO_ENGINE, steps_per_sync=t)
+            if path == "kernel" and t > 1:
+                check_no_host_read(Engine(comp, EngineConfig(**cfg)),
+                                   "9 iso")
+            obs = Observability()
+            eng = Engine(comp, EngineConfig(**cfg, observe=True,
+                                            observability=obs))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mi.reset_launches()
+            t0 = time.perf_counter()
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            runs[path, t] = res
+            launches[path, t] = mi.launches
+            print(f"[9 iso] {path} T={t}: keys="
+                  f"{[int(x) for x in res.result_keys]} "
+                  f"{ {c: getattr(res, c) for c in COUNTERS} } "
+                  f"computation={comp_s:.2f}s wall={wall_s:.3f}s "
+                  f"ms_per_step={1e3 * wall_s / max(1, res.steps):.3f} "
+                  f"masked_intersect_launches={mi.launches} "
+                  f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                  f"GiB; ms per step by span: {span_ms(obs, res.steps)}")
+    first = runs["kernel", 1]
+    for (path, t), res in runs.items():
+        same_run(f"iso {path} T={t} against kernel T=1", res, first,
+                 [c for c in COUNTERS if c != "host_syncs"])
+        same_run(f"iso {path} T={t} against kernel T={t}", res,
+                 runs["kernel", t])
+        if path == "kernel" and launches[path, t] < res.steps:
+            fail(f"iso kernel path T={t}: {launches[path, t]} "
+                 f"masked_intersect launches in {res.steps} steps")
+        if path == "batched" and launches[path, t]:
+            fail(f"iso batched path T={t} launched masked_intersect")
+    live = [(int(key), comp.describe(row)) for key, row in
+            zip(first.result_keys, first.result_states) if key > -2 ** 31]
+    if not live:
+        fail("iso found no match, though the query was read off one")
+    for key, mapping in live:
+        check_embedding(g, ISO_4G, q_labels, mapping, key)
+    print(f"[9 iso] four runs byte-equal (counters too; host_syncs between "
+          f"equal T); results {live} are induced, label-preserving 4G "
+          f"embeddings (numpy)")
+
+    # the masked kernel at this path's call shape: B rows and row masks
+    # against the eye_table columns
+    rng = np.random.default_rng(2)
+    b, n, w = ISO_ENGINE["batch"], g.n, (g.n + 31) // 32
+    cols = to_tensor(eye_table(n), "cuda")
+    rows, mask = (torch.from_numpy(rng.integers(0, 2 ** 32, (b, w),
+                                                dtype=np.uint32)
+                                   .view(np.int32)).cuda() for _ in range(2))
+    if not torch.equal(mi.masked_intersect(rows, cols, mask),
+                       mi.masked_intersect_plain(rows, cols, mask)):
+        fail("masked_intersect at the iso shape differs from its plain "
+             "version")
+    ms = cuda_ms(lambda: mi.masked_intersect(rows, cols, mask), 20)
+    plain_ms = cuda_ms(lambda: mi.masked_intersect_plain(rows, cols, mask),
+                       3, 1)
+    bound, bound_by = masked_intersect_bound_ms(b, n, w, True, env)
+    print(f"[9 iso] masked_intersect (masked) B={b} N={n} W={w} against "
+          f"eye_table columns: exact, ms={ms:.4f} plain_ms={plain_ms:.3f} "
+          f"bound_ms={bound:.4f} ({bound_by}) library_ms=null")
+    return dict(launches=launches["kernel", 1], max_abs_err=0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=None,
+                launches_by_t={t: launches["kernel", t]
+                               for t in (1, MACRO_T)})
 
 
 def torch_dtypes():
@@ -994,10 +1321,12 @@ def main() -> int:
     ragged = phase_coworkload_kernels()
     phase_quickstart_parity()
     launches, comp, res = phase_main_path()
-    phase_profile(comp, res)
-    del comp, res
+    idle_t1 = phase_profile(comp, res)
     cowork = phase_coworkload(planted_clique_graph(**FULL_GRAPH), ragged)
     phase_merge_topk()
+    macro_launches = phase_macro_path(comp, res, idle_t1)
+    del comp, res
+    iso = phase_iso(env)
     kernels = [dict(
         name="masked_intersect", route="cuda",
         source="src/repro_torch/kernels/csrc/masked_intersect.cu",
@@ -1005,7 +1334,11 @@ def main() -> int:
         launches=launches, max_abs_err=kernel["max_abs_err"],
         ms=kernel["ms"], plain_ms=kernel["plain_ms"],
         bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"],
-        library_ms=None)]
+        library_ms=None,
+        masked={k: v for k, v in iso.items() if k != "launches_by_t"},
+        launches_by_path={
+            "clique T=1": launches, f"clique T={MACRO_T}": macro_launches,
+            **{f"iso T={t}": n for t, n in iso["launches_by_t"].items()}})]
     for name, line in (("segment_matmul", 59), ("embedding_bag", 46),
                        ("flash_attention", 84)):
         # the fp32 record first; a bf16 one beside it where both run

@@ -1,9 +1,8 @@
 """Batched prioritized subgraph-expansion engine (paper Algorithm 1), on
 PyTorch.
 
-The port of ``repro.core.engine`` for one device at ``steps_per_sync=1``.
-One *super-step* (:meth:`Engine._step_impl`) is the reference's, operation
-for operation:
+The port of ``repro.core.engine`` for one device.  One *super-step*
+(:meth:`Engine._step_impl`) is the reference's, operation for operation:
 
 1. **dequeue** the ``B`` highest-priority states from the device pool;
 2. **result insertion** into the top-k result set (:func:`merge_topk`);
@@ -20,8 +19,22 @@ how each selection is written here: ``jax.lax.top_k`` and
 ``torch.topk`` does not, so every selection is a stable descending
 ``torch.sort`` followed by a slice.
 
-The host reads one small stats tensor per step (one device-to-host sync)
-and ships only the valid prefix of the overflow block to the queue.
+At ``steps_per_sync=1`` the host reads one small stats tensor per step (one
+device-to-host sync) and ships only the valid prefix of the overflow block
+to the queue.
+
+Macro-steps (``steps_per_sync=T > 1``, the reference's DESIGN.md §13): one
+:meth:`Engine.step` enqueues ``T`` super-steps with no host read between
+them (:meth:`Engine._macro_flat`) and reads their stats once.  The
+reference leaves its ``lax.while_loop`` early, at the first step after
+which host work is due (:meth:`Engine._cont_flag`); a host loop cannot
+leave on a device value without reading it, so here every one of the
+``T`` steps is launched and a device flag, ``active``, turns each step
+after the exit into an exact no-op (nothing dequeued, the pool and the
+result set kept).  Answers, counters and ``host_syncs`` are the
+reference's at the same ``T``; the no-op steps cost device time, which is
+the price of the single read.  Each step's overflow block lands at the
+valid-entry watermark ``w`` of an accumulator allocated once per engine.
 """
 from __future__ import annotations
 
@@ -38,12 +51,15 @@ from repro_torch.obs import NOOP, Observability
 
 _STAT_NAMES = ("expanded", "created", "pruned", "pool_occupancy",
                "threshold", "overflow")
+#: what one macro-step reports, in one tensor (one host read)
+_MACRO_STAT_NAMES = ("steps", "expanded", "created", "pruned",
+                     "spill_count", "pool_occupancy", "threshold")
 
 
 @dataclasses.dataclass
 class EngineConfig:
     """The reference's ``EngineConfig``, field for field, so a config can be
-    carried across.  This slice runs one device at ``steps_per_sync=1``;
+    carried across.  The port runs one device, at any ``steps_per_sync``;
     :class:`Engine` raises ``NotImplementedError`` for a value it does not
     support, naming the ROADMAP item that brings it."""
     k: int = 1                    # result set size
@@ -54,8 +70,8 @@ class EngineConfig:
     spill: str = "host"           # VPQ backing: "host" | "disk" | "none"
     spill_dir: Optional[str] = None
     shards: int = 1               # sharded engine: ROADMAP Queue 1, item 12
-    steps_per_sync: int = 1       # macro-steps: ROADMAP Queue 1, item 4
-    overflow_accum: Optional[int] = None   # macro-step accumulator (item 4)
+    steps_per_sync: int = 1       # T: super-steps per host read
+    overflow_accum: Optional[int] = None   # macro-step accumulator rows
     sync_every: int = 1           # stale bound exchange: item 12
     record_bound_trace: bool = False       # sharded test hook: item 12
     checkpoint_every: int = 0     # durable runs: ROADMAP Queue 1, item 9
@@ -79,7 +95,7 @@ class EngineResult:
     rebalanced: int = 0           # spilled entries moved across shards
     late_pruned: int = 0          # dominated entries dropped at VPQ refill
     syncs: int = 0                # bound-exchange collectives (0 unsharded)
-    host_syncs: int = 0           # host-device round-trips (== steps)
+    host_syncs: int = 0           # host-device round-trips, one a step()
     per_shard: Optional[dict] = None
 
 
@@ -167,8 +183,6 @@ class Engine:
 
     def __init__(self, comp: SubgraphComputation, config: EngineConfig):
         unsupported = [
-            (config.steps_per_sync > 1, "steps_per_sync > 1 (macro-steps) "
-             "is not ported yet: ROADMAP Queue 1, item 4"),
             (config.shards > 1 or config.sync_every > 1
              or config.record_bound_trace, "the sharded engine (shards, "
              "sync_every, record_bound_trace) is not ported yet: ROADMAP "
@@ -202,6 +216,13 @@ class Engine:
         self.C = config.pool_capacity
         self.S = comp.state_width
         self.k = config.k
+        self.T = max(1, config.steps_per_sync)
+        # overflow-accumulator capacity: one super-step's overflow block is
+        # exactly B + M rows (the insert over C + M + B rows keeps C), so T
+        # blocks never overflow the default sizing
+        self.acc_cap = max(config.overflow_accum or self.T * (self.B + self.M),
+                           self.B + self.M)
+        self._acc = None          # [acc_cap + B + M] rows, made at first use
         if config.observe:
             self.obs = config.observability or Observability()
         else:
@@ -229,10 +250,16 @@ class Engine:
 
     # ------------------------------------------------------------------ step
     def _step_impl(self, pool_states, pool_prio, pool_ub,
-                   result_states, result_keys):
+                   result_states, result_keys, active=None):
         """One super-step; returns the new pool and result set, the overflow
         block (sorted by descending priority, so its valid rows are a
-        prefix) and the step's stats as one int64 tensor."""
+        prefix) and the step's stats as one int64 tensor.
+
+        ``active`` (a bool tensor on the device; None outside a macro-step)
+        false makes the step a no-op: nothing is dequeued, so nothing is
+        expanded, pruned or spilled, and the pool and result set come back
+        as they went in; its stats read zero but for occupancy and
+        threshold, which are unchanged."""
         comp, B, M, k = self.comp, self.B, self.M, self.k
         A = comp.num_actions
 
@@ -240,15 +267,22 @@ class Engine:
         idx_b = _desc_order(pool_prio)[:B]
         prio_b = pool_prio[idx_b]
         valid_b = prio_b > NEG
+        if active is not None:
+            valid_b = valid_b & active
         states_b = pool_states[idx_b]
         ub_b = pool_ub[idx_b]
-        pool_prio = pool_prio.index_fill(0, idx_b, NEG)
+        # the dequeued slots empty (the others among the B are empty already)
+        pool_prio = pool_prio.index_put((idx_b,),
+                                        torch.where(valid_b, NEG, prio_b))
 
         # 2. result insertion (Alg. 1 lines 6-10), canonical tie-break
         rkey_b = torch.where(valid_b, comp.result_key(states_b), NEG)
-        result_states, result_keys = merge_topk(
-            torch.cat([result_states, states_b]),
-            torch.cat([result_keys, rkey_b]), k)
+        merged = merge_topk(torch.cat([result_states, states_b]),
+                            torch.cat([result_keys, rkey_b]), k)
+        if active is not None:
+            merged = [torch.where(active, new, old) for new, old in
+                      zip(merged, (result_states, result_keys))]
+        result_states, result_keys = merged
 
         # 3. dominance threshold: the k-th entry (NEG while R not full)
         threshold = result_keys[k - 1]
@@ -282,7 +316,8 @@ class Engine:
         pool_states, pool_prio, pool_ub, *overflow = self._insert_impl(
             (pool_states, child_states, states_b),
             (pool_prio, top_cp, torch.where(deferred, prio_b, NEG)),
-            (pool_ub, child_ub_sel, torch.where(deferred, ub_b, NEG)))
+            (pool_ub, child_ub_sel, torch.where(deferred, ub_b, NEG)),
+            active)
 
         stats = torch.stack([
             admitted.sum(), sel_valid.sum(), pruned,
@@ -291,15 +326,97 @@ class Engine:
         return (pool_states, pool_prio, pool_ub,
                 result_states, result_keys, overflow, stats)
 
+    # ------------------------------------------------------------ macro-step
+    def _macro_impl(self, pool_states, pool_prio, pool_ub, result_states,
+                    result_keys, t_max: int, vpq_nonempty: bool):
+        """Up to ``t_max`` fused super-steps with no host read between them
+        (the reference's DESIGN.md §13).  Only the ``sync_every = 1`` form
+        is ported (``_macro_segmented`` is ROADMAP Queue 1, item 12)."""
+        return self._macro_flat(pool_states, pool_prio, pool_ub,
+                                result_states, result_keys, t_max,
+                                vpq_nonempty)
+
+    def _accumulator(self):
+        """The overflow accumulator ``(states, prio, ub)``: ``acc_cap`` rows
+        plus one block of spare rows, so that a no-op step may write its
+        block at any ``w <= acc_cap``.  Made once per engine; each
+        macro-step writes its rows before the host reads them, so nothing
+        is cleared between macro-steps."""
+        if self._acc is None:
+            rows, dev = self.acc_cap + self.B + self.M, self.device
+            self._acc = (
+                torch.zeros((rows, self.S), dtype=torch.int32, device=dev),
+                torch.full((rows,), NEG, dtype=torch.int32, device=dev),
+                torch.full((rows,), NEG, dtype=torch.int32, device=dev))
+        return self._acc
+
+    def _cont_flag(self, vpq_nonempty: bool, t_max: int, t, w, occ):
+        """Whether the loop goes on after a step (the reference's decision,
+        on the device): steps remain, the next overflow block is sure to
+        fit, the pool is not empty, and no refill is due — the pool is at
+        or above the ``C//2`` watermark, or nothing is spilled (the VPQ was
+        empty at entry and the accumulator is empty)."""
+        room = (w + (self.B + self.M)) <= self.acc_cap
+        low = occ < (self.C // 2)
+        refillable = (w > 0) | vpq_nonempty
+        need_host = ~room | (low & refillable)
+        return (t < t_max) & ~need_host & (occ > 0)
+
+    def _fused_step(self, ps, pp, pu, rs, rk, w, sums, active):
+        """One inner super-step plus the accumulator write and the sums.
+
+        The block is written at the watermark ``w`` (the reference's
+        ``dynamic_update_slice``) and its valid rows, which lead it, are
+        kept by advancing ``w`` by their count.  The rows past ``w`` are
+        never read, so a no-op step (count 0) may write there; the loop's
+        room check keeps ``w <= acc_cap``, and the spare block past
+        ``acc_cap`` holds the write."""
+        ps, pp, pu, rs, rk, overflow, stats = self._step_impl(
+            ps, pp, pu, rs, rk, active=active)
+        dst = w + torch.arange(self.B + self.M, device=self.device)
+        for acc, block in zip(self._accumulator(), overflow):
+            acc.index_copy_(0, dst, block)
+        return ps, pp, pu, rs, rk, w + stats[5], sums + stats[:3], stats
+
+    def _macro_flat(self, pool_states, pool_prio, pool_ub, result_states,
+                    result_keys, t_max: int, vpq_nonempty: bool):
+        """The macro loop: ``t_max`` steps launched, the first always live,
+        each later one live while :meth:`_cont_flag` holds after its
+        predecessor.  No host read in between.  Returns the pool, the
+        result set and one int64 stats tensor (:data:`_MACRO_STAT_NAMES`);
+        the overflow rows are ``self._acc[i][:spill_count]``."""
+        dev = self.device
+        active = torch.ones((), dtype=torch.bool, device=dev)
+        t = torch.zeros((), dtype=torch.int64, device=dev)
+        w = torch.zeros((), dtype=torch.int64, device=dev)
+        sums = torch.zeros((3,), dtype=torch.int64, device=dev)
+        ps, pp, pu, rs, rk = (pool_states, pool_prio, pool_ub,
+                              result_states, result_keys)
+        for _ in range(t_max):
+            ps, pp, pu, rs, rk, w, sums, stats = self._fused_step(
+                ps, pp, pu, rs, rk, w, sums, active)
+            t = t + active
+            # a no-op step leaves occupancy and threshold as they were, so
+            # the last step's are the last live step's
+            active = active & self._cont_flag(vpq_nonempty, t_max, t, w,
+                                              stats[3])
+        stats = torch.cat([t[None], sums, w[None], stats[3:5]])
+        return ps, pp, pu, rs, rk, stats
+
     # ---------------------------------------------------------------- insert
-    def _insert_impl(self, states, prio, ub):
+    def _insert_impl(self, states, prio, ub, active=None):
         """Merge-sort insert over row blocks (the pool first): all rows by
         descending priority, ties in block order; the top C are the new
-        pool, the rest the overflow block (its valid rows lead)."""
+        pool, the rest the overflow block (its valid rows lead).  With
+        ``active`` false the rows keep their order, so the pool comes back
+        as it went in and the overflow is the (empty) rows after it."""
         C = self.C
         cat_states, cat_prio, cat_ub = (torch.cat(x) for x in (states, prio,
                                                                 ub))
         order = _desc_order(cat_prio)
+        if active is not None:
+            order = torch.where(active, order, torch.arange(
+                order.shape[0], device=order.device))
         keep, over = order[:C], order[C:]
         return (cat_states[keep], cat_prio[keep], cat_ub[keep],
                 cat_states[over], cat_prio[over], cat_ub[over])
@@ -346,8 +463,18 @@ class Engine:
             vpq=vpq, candidates=int(n0), pool_occupancy=min(int(n0), C))
 
     # ------------------------------------------------------------------ step
-    def step(self, st: EngineState) -> EngineState:
-        """Advance one super-step.  Updates ``st`` in place and returns it."""
+    def step(self, st: EngineState, max_inner: Optional[int] = None
+             ) -> EngineState:
+        """Advance one engine step — a single super-step at
+        ``steps_per_sync == 1``, else one macro-step of up to
+        ``min(steps_per_sync, max_inner)`` super-steps.  ``max_inner`` caps
+        the fused count so that a step budget truncates at the same step
+        for any ``steps_per_sync``.  Updates ``st`` in place and returns
+        it."""
+        if self.T > 1:
+            t_cap = (self.T if max_inner is None
+                     else max(1, min(self.T, int(max_inner))))
+            return self._macro_step(st, t_cap)
         t0 = time.perf_counter() if self.obs.enabled else 0.0
         with self._span("engine.step"):
             # the launches are asynchronous: device time that the enqueue
@@ -372,12 +499,40 @@ class Engine:
                     st.vpq.maybe_push(*(x[:n_over].cpu().numpy()
                                         for x in overflow))
             self._refill(st, stats["pool_occupancy"])
-        self._after_step(st, stats, t0)
+        self._after_step(st, 1, stats, t0)
         return st
 
-    def _after_step(self, st: EngineState, stats: dict, t0: float) -> None:
+    def _macro_step(self, st: EngineState, t_cap: int) -> EngineState:
+        """One macro-step of up to ``t_cap`` super-steps and one host read."""
+        t0 = time.perf_counter() if self.obs.enabled else 0.0
+        with self._span("engine.step"):
+            with self._span("engine.device_compute"):
+                (st.pool_states, st.pool_prio, st.pool_ub,
+                 st.result_states, st.result_keys, stats) = self._macro_impl(
+                    st.pool_states, st.pool_prio, st.pool_ub,
+                    st.result_states, st.result_keys, t_cap,
+                    len(st.vpq) > 0)
+            with self._span("engine.host_sync"):
+                stats = dict(zip(_MACRO_STAT_NAMES, stats.tolist()))
+            st.steps += stats["steps"]
+            st.host_syncs += 1
+            st.expanded += stats["expanded"]
+            st.candidates += stats["created"]
+            st.pruned += stats["pruned"]
+            st.threshold = stats["threshold"]
+            w = stats["spill_count"]
+            if w:    # ship only the accumulator's valid prefix; none when dry
+                with self._span("engine.spill"):
+                    st.vpq.maybe_push(*(x[:w].cpu().numpy()
+                                        for x in self._acc))
+            self._refill(st, stats["pool_occupancy"])
+        self._after_step(st, stats["steps"], stats, t0)
+        return st
+
+    def _after_step(self, st: EngineState, n_steps: int, stats: dict,
+                    t0: float) -> None:
         """Record one step() call's metrics (no-op handles when off)."""
-        self._m_steps.inc()
+        self._m_steps.inc(n_steps)
         self._m_host_syncs.inc()
         self._m_expanded.inc(stats["expanded"])
         self._m_candidates.inc(stats["created"])
@@ -434,7 +589,7 @@ class Engine:
         """Run to completion (or ``max_steps``)."""
         st = self.start()
         while not st.done and st.steps < self.cfg.max_steps:
-            self.step(st)
+            self.step(st, max_inner=self.cfg.max_steps - st.steps)
             if progress_every and st.steps % progress_every == 0:
                 print(f"[{self.comp.name}] step={st.steps} "
                       f"occ={st.pool_occupancy} vpq={len(st.vpq)} "

@@ -234,7 +234,7 @@ def test_entry_point_raises_without_cuda_device():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("steps_per_sync", 4, "item 4"), ("shards", 2, "item 12"),
+    ("record_bound_trace", True, "item 12"), ("shards", 2, "item 12"),
     ("sync_every", 2, "item 12"), ("checkpoint_every", 8, "item 9"),
     ("use_pallas", True, "item 3")])
 def test_unsupported_config_names_roadmap_item(field, value, item):
