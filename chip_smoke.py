@@ -6,9 +6,10 @@
 Builds the CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, drives the port's
 paths — single-device maximum-clique discovery one super-step a host read
-and in macro-steps, labeled subgraph isomorphism, and the co-workload
-path from the data pipeline through the float kernels — at full width,
-and prints where the time went.  Phases, one line each (plus detail):
+and in macro-steps, labeled subgraph isomorphism, top-k pattern mining,
+and the co-workload path from the data pipeline through the float
+kernels — at full width, and prints where the time went.  Phases, one line
+each (plus detail):
 
 1. environment: the card's name and power limit, the kernels' build; for
    ``flash_attention``, the counts of ``HGMMA`` (wgmma) and ``UTMALDG``
@@ -27,12 +28,23 @@ and prints where the time went.  Phases, one line each (plus detail):
    CSR build (``csr_by_node``) bit for bit against ``edges_by_node`` on
    random, sorted, one-node and all-dropped ``dst``, and one
    ``segment_matmul`` call shown to be one C call with no sort, search or
-   host read;
+   host read; ``masked_intersect`` also at the pattern probe's shapes
+   (masked, one all-ones column: 8 and 1,024 rows of 1,024 words, 1,000
+   of 104) with the 1,024-row call's time beside its bound, and at
+   4,194,305 rows of one word, past the 65,535 row tiles of one CUDA grid
+   dimension;
 3. the quickstart config, the spill probe (at ``steps_per_sync`` 1 and
    16) and a small iso run through the masked kernel (the reference's
    ``tests/test_kernels.py`` case, at ``steps_per_sync`` 1 and 16) on
    ``cuda`` and on ``cpu``: byte-identical answers, every counter equal,
-   and the reference's counters;
+   and the reference's counters; top-k pattern mining on
+   ``tests/test_kernels.py``'s case (M = 3, k = 3) with ``use_pallas``
+   True and False, on ``cuda`` and then on ``cpu`` in one process, each
+   equal to the reference's patterns and counters (4 kernel launches on
+   the kernel path); one weighted-clique run (``tests/
+   test_weighted_clique.py``'s seed 0) byte-equal on both devices, with
+   the reference's counters and the brute-force answer; and Nuri-NP's
+   candidate count on the quickstart graph, the reference's;
 4. the main path: ``planted_clique_graph(32768, 354000, 32, seed=0)`` with
    ``EngineConfig(k=3, batch=64, pool_capacity=16384)`` must find the
    planted 32-clique, and every kernel of the path must have launched;
@@ -75,13 +87,25 @@ and prints where the time went.  Phases, one line each (plus detail):
    equal T), the best result must be an induced, label-preserving
    embedding (checked on the host with numpy), and the kernel's path must
    launch ``masked_intersect`` at least once a step; set-up, steps, ms a
-   step, spans, and the masked kernel's time at this shape.
+   step, spans, and the masked kernel's time at this shape;
+10. top-k pattern mining (M = 3, k = 3) at full width on the kernel path
+   (``use_pallas=True``, the probes' rows gathered on the card): (a)
+   phase 9's graph, which stops on the reference's default candidate
+   budget (``completed=False``), and (b) ``labeled_graph(8192, 88500,
+   29, seed=0)``, the same density cut to the largest size of those runs
+   that completes; each must give the reference's codes, supports and
+   counters and launch ``masked_intersect`` exactly once an edge probe
+   (856 and 2,218 times, the reference's probe counts), with one host read
+   a probe; one run each under ``torch.profiler``: wall, probes and their
+   summed host time (launch and read included), the kernel's device time,
+   the rest (the host's expansion) and peak device memory.
 
 The line before the last is the kernels' JSON record (each kernel's fp32
 numbers, and its bf16 numbers under ``bf16`` where phase 6 runs both,
 each with its own launch count; ``masked_intersect``'s mask-free numbers
 from phases 2 and 4, its masked form's at the iso shape under ``masked``
-with phase 9's launches, and the launches of each discovery path under
+with phase 9's launches, at the pattern probe's shape under
+``pattern_probe``, and the launches of each discovery path under
 ``launches_by_path``); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result line.  Without a CUDA device, or without the repository's
@@ -138,6 +162,58 @@ ISO_ENGINE = dict(k=3, batch=64, pool_capacity=16384, spill="host")
 RAGGED_SHAPES = ((1, 1, 1), (1, 16, 1), (5, 257, 1), (7, 1, 2), (13, 100, 7),
                  (32, 300, 4), (8, 128, 32), (67, 1000, 33))
 MAIN_SHAPE = (64, 32768, 1024)
+# the pattern probe's shape, masked: Ep padded rows x one all-ones column
+# (the fewest rows, the full-width probe's, and a ragged one), then more
+# rows than 65,535 row tiles of 64 (one CUDA grid dimension's limit)
+PROBE_SHAPES = ((8, 1, 1024), (1024, 1, 1024), (1000, 1, 104))
+PROBE_SHAPE = (1024, 1, 1024)
+TALL_SHAPE = ((1 << 22) + 1, 1, 1)
+
+# phase 3: tests/test_kernels.py's pattern case (M = 3, k = 3), with the
+# reference package's answer and counters (CPU JAX, use_pallas False and
+# True alike; 4 edge probes, so 4 kernel launches on the kernel path)
+PATTERN_SMALL_GRAPH = dict(n=60, m=180, n_labels=3, seed=9)
+PATTERN_SMALL = dict(m_edges=3, k=3)
+PATTERN_SMALL_WANT = dict(
+    patterns=[(18, ((0, 1, 0, 0), (1, 2, 0, 2), (0, 3, 0, 2))),
+              (18, ((0, 1, 0, 0), (1, 2, 0, 2), (2, 3, 2, 2))),
+              (18, ((0, 1, 0, 2), (1, 2, 2, 2), (2, 3, 2, 0)))],
+    candidates=10789, groups_expanded=7, groups_pruned=17, completed=True)
+PATTERN_SMALL_PROBES = 4
+# phase 3: tests/test_weighted_clique.py's seed-0 case, with the reference
+# package's engine answer and counters (CPU JAX)
+WEIGHTED_GRAPH = dict(n=50, m=180, seed=0)
+WEIGHTED_CFG = dict(k=1, batch=16, pool_capacity=4096)
+WEIGHTED_WANT = dict(steps=8, candidates=108, expanded=25, pruned=83,
+                     spilled=0, refilled=0, late_pruned=0)
+WEIGHTED_KEYS, WEIGHTED_MEMBERS = [43], [11, 29, 35]
+# phase 3: Nuri-NP on the quickstart graph (the reference's
+# nuri_np_clique_candidates, CPU, max_candidates=2_000_000)
+NURI_NP_WANT = dict(candidates=4283, max_clique_size=9, completed=True)
+
+# phase 10 (PERF.md, "Cells"): top-k pattern mining, M = 3, k = 3, on the
+# kernel path, with the reference package's answers (CPU JAX,
+# repro.core.aggregate.topk_frequent_patterns, use_pallas False; its edge
+# probes counted by wrapping repro.core.patterns._edge_probe): on phase
+# 9's graph the run stops on the default candidate budget; the 8k cut at
+# the same density completes
+PATTERN_RESULT_FIELDS = ("patterns", "candidates", "groups_expanded",
+                         "groups_pruned", "completed")
+PATTERN_CELLS = {
+    "pattern M=3": (ISO_GRAPH, dict(
+        patterns=[(256, ((0, 1, 2, 16), (1, 2, 16, 13), (2, 3, 13, 27))),
+                  (255, ((0, 1, 2, 10), (0, 2, 2, 16), (2, 3, 16, 5))),
+                  (254, ((0, 1, 2, 3), (1, 2, 3, 13), (2, 3, 13, 27)))],
+        candidates=50_028_358, groups_expanded=1250, groups_pruned=53_083,
+        completed=False), 856),
+    "pattern M=3 8k": (dict(n=8192, m=88_500, n_labels=29, seed=0), dict(
+        patterns=[(86, ((0, 1, 1, 1), (1, 2, 1, 18), (0, 3, 1, 18))),
+                  (86, ((0, 1, 3, 26), (0, 2, 3, 27), (2, 3, 27, 26))),
+                  (84, ((0, 1, 1, 3), (0, 2, 1, 19), (2, 3, 19, 11)))],
+        candidates=37_865_443, groups_expanded=3603, groups_pruned=135_815,
+        completed=True), 2218),
+}
+PATTERN_M = dict(m_edges=3, k=3)
 
 # the scoring kernel's name in a profiler trace (csrc/masked_intersect.cu)
 MI_KERNEL = "masked_intersect_kernel"
@@ -373,6 +449,30 @@ def phase_kernels(env: dict) -> dict:
                     record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by)
             print(line)
+    # the pattern probe's shapes: masked, one all-ones column
+    for (b, n, w) in PROBE_SHAPES + (TALL_SHAPE,):
+        a, mask = words(b, w), words(b, w)
+        cols = torch.full((n, w), -1, dtype=torch.int32, device="cuda")
+        got = mi.masked_intersect(a, cols, mask)
+        want = mi.masked_intersect_plain(a, cols, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"masked_intersect B={b} N={n} W={w} mask=True (probe): "
+                 f"differs from its plain version")
+        line = f"[2 kernel] masked_intersect B={b} N={n} W={w} mask=True " \
+               f"(pattern probe): exact"
+        if (b, n, w) == PROBE_SHAPE:
+            ms = cuda_ms(lambda: mi.masked_intersect(a, cols, mask), 20)
+            plain_ms = cuda_ms(
+                lambda: mi.masked_intersect_plain(a, cols, mask), 20)
+            bound_ms, bound_by = masked_intersect_bound_ms(b, n, w, True,
+                                                           env)
+            line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                     f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms=null")
+            record["pattern_probe"] = dict(
+                shape=[b, n, w], max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        print(line)
     record["max_abs_err"] = max_err
     return record
 
@@ -388,11 +488,18 @@ def same_run(what: str, a, b, counters=COUNTERS) -> None:
 
 
 def phase_quickstart_parity():
+    import numpy as np
+    from repro_torch.core.aggregate import topk_frequent_patterns
     from repro_torch.core.clique import make_clique_computation
     from repro_torch.core.engine import Engine, EngineConfig
+    from repro_torch.core.exhaustive import nuri_np_clique_candidates
     from repro_torch.core.iso import build_iso_index, make_iso_computation
-    from repro_torch.data.synthetic_graphs import (labeled_graph,
+    from repro_torch.core.weighted_clique import (
+        brute_force_max_weight_clique, make_weighted_clique_computation)
+    from repro_torch.data.synthetic_graphs import (densifying_graph,
+                                                   labeled_graph,
                                                    planted_clique_graph)
+    from repro_torch.kernels import masked_intersect as mi
 
     g = planted_clique_graph(**QUICKSTART_GRAPH)
     cases = dict(QUICKSTART_CASES)
@@ -436,6 +543,63 @@ def phase_quickstart_parity():
         print(f"[3 parity] iso (masked kernel) T={t}: index and run cuda == "
               f"cpu byte for byte, keys {keys}, counters {got}, host_syncs "
               f"{cu.host_syncs}")
+
+    # pattern mining on cuda, then on cpu in the same process (the device
+    # bitsets are cached per device), on both probe paths
+    g = labeled_graph(**PATTERN_SMALL_GRAPH)
+    for use_pallas in (True, False):
+        res = {}
+        for device in ("cuda", "cpu"):
+            mi.reset_launches()
+            res[device] = topk_frequent_patterns(
+                g, **PATTERN_SMALL, use_pallas=use_pallas, device=device)
+            launches = mi.launches
+            if device == "cuda" and launches != (
+                    PATTERN_SMALL_PROBES if use_pallas else 0):
+                fail(f"pattern use_pallas={use_pallas}: {launches} "
+                     f"masked_intersect launches")
+        for device, r in res.items():
+            got = {f: getattr(r, f) for f in PATTERN_SMALL_WANT}
+            if got != PATTERN_SMALL_WANT:
+                fail(f"pattern use_pallas={use_pallas} on {device}: {got}, "
+                     f"reference {PATTERN_SMALL_WANT}")
+        print(f"[3 parity] pattern M=3 use_pallas={use_pallas}: cuda == cpu "
+              f"== reference, supports "
+              f"{[sup for sup, _ in res['cuda'].patterns]}, candidates "
+              f"{res['cuda'].candidates}, masked_intersect launches on cuda "
+              f"{PATTERN_SMALL_PROBES if use_pallas else 0}")
+
+    g = densifying_graph(**WEIGHTED_GRAPH)
+    weights = np.random.default_rng(WEIGHTED_GRAPH["seed"]).integers(
+        1, 20, g.n)
+    res, comps = {}, {}
+    for device in ("cuda", "cpu"):
+        comps[device] = make_weighted_clique_computation(g, weights,
+                                                         device=device)
+        res[device] = Engine(comps[device], EngineConfig(**WEIGHTED_CFG)).run()
+    cu = res["cuda"]
+    same_run("weighted clique cuda against cpu", cu, res["cpu"])
+    got = {name: getattr(cu, name) for name in WEIGHTED_WANT}
+    keys = [int(x) for x in cu.result_keys]
+    members = comps["cuda"].describe(cu.result_states[0])
+    oracle = brute_force_max_weight_clique(g, weights)
+    if got != WEIGHTED_WANT or keys != WEIGHTED_KEYS or \
+            members != WEIGHTED_MEMBERS or oracle != (keys[0], members):
+        fail(f"weighted clique: counters {got} keys {keys} members "
+             f"{members} (brute force {oracle}), reference {WEIGHTED_WANT} "
+             f"keys {WEIGHTED_KEYS} members {WEIGHTED_MEMBERS}")
+    print(f"[3 parity] weighted clique: cuda == cpu byte for byte == brute "
+          f"force, keys {keys} members {members}, counters {got}")
+
+    g = planted_clique_graph(**QUICKSTART_GRAPH)
+    got = nuri_np_clique_candidates(g, max_candidates=2_000_000)
+    if got != NURI_NP_WANT:
+        fail(f"Nuri-NP on the quickstart graph: {got}, reference "
+             f"{NURI_NP_WANT}")
+    engine_candidates = QUICKSTART_CASES["quickstart"][1]["candidates"]
+    print(f"[3 parity] Nuri-NP on the quickstart graph: {got} (reference "
+          f"equal), {got['candidates'] / engine_candidates:.1f}x the "
+          f"engine's candidates")
 
 
 def phase_main_path() -> int:
@@ -789,6 +953,84 @@ def phase_iso(env: dict) -> dict:
                 library_ms=None,
                 launches_by_t={t: launches["kernel", t]
                                for t in (1, MACRO_T)})
+
+
+def phase_patterns() -> dict:
+    """Top-k pattern mining at full width on the kernel path: each cell of
+    ``PATTERN_CELLS`` once, under torch.profiler, with every edge probe
+    timed on the host (its kernel launch and its device->host read
+    included); the reference's answer and exactly its number of probes as
+    ``masked_intersect`` launches.  Returns the launches by cell."""
+    import tempfile
+    import torch
+    from repro_torch.core import patterns
+    from repro_torch.core.aggregate import topk_frequent_patterns
+    from repro_torch.data.synthetic_graphs import labeled_graph
+    from repro_torch.kernels import masked_intersect as mi
+    from torch.profiler import ProfilerActivity, profile
+
+    launches = {}
+    real_probe = patterns._edge_probe
+    for cell, (graph, want, probes_want) in PATTERN_CELLS.items():
+        t0 = time.perf_counter()
+        g = labeled_graph(**graph)
+        graph_s = time.perf_counter() - t0
+        probe_s = []
+
+        def timed_probe(*args, **kwargs):
+            t = time.perf_counter()
+            out = real_probe(*args, **kwargs)
+            probe_s.append(time.perf_counter() - t)
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        patterns._edge_probe = timed_probe
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                mi.reset_launches()
+                patterns.reset_reads()
+                t0 = time.perf_counter()
+                res = topk_frequent_patterns(g, **PATTERN_M, use_pallas=True,
+                                             device="cuda")
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                launches[cell], reads = mi.launches, patterns.reads
+        finally:
+            patterns._edge_probe = real_probe
+        peak = torch.cuda.max_memory_allocated()
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f"{tmp}/trace.json")
+            busy_s, by_name, counts = device_busy(f"{tmp}/trace.json")
+        kernel_ms = sum(ms for name, ms in by_name.items()
+                        if MI_KERNEL in name)
+        traced = kernel_launches(counts, MI_KERNEL)
+        got = {f: getattr(res, f) for f in PATTERN_RESULT_FIELDS}
+        print(f"[10 pattern] {cell}: N={g.n} edges={g.num_edges} "
+              f"labels={g.n_labels} graph={graph_s:.2f}s "
+              f"supports={[sup for sup, _ in res.patterns]} "
+              f"candidates={res.candidates} "
+              f"expanded={res.groups_expanded} pruned={res.groups_pruned} "
+              f"completed={res.completed} wall={wall_s:.3f}s (profiler on) "
+              f"probes={len(probe_s)} probe_host={sum(probe_s):.3f}s "
+              f"(launch + read; max {1e3 * max(probe_s, default=0):.3f} ms) "
+              f"kernel_device={kernel_ms:.3f} ms "
+              f"({1e3 * kernel_ms / max(1, traced):.2f} us a launch, "
+              f"{traced} in the trace) device_busy={busy_s:.3f}s "
+              f"rest (host expansion)={wall_s - sum(probe_s):.3f}s "
+              f"masked_intersect_launches={launches[cell]} host_reads={reads} "
+              f"peak_mem={peak / 2**30:.2f}GiB")
+        if got != want:
+            fail(f"{cell}: {got}, reference {want}")
+        if not launches[cell] == reads == len(probe_s) == traced == \
+                probes_want:
+            fail(f"{cell}: {launches[cell]} masked_intersect launches "
+                 f"({traced} in the trace), {reads} host reads and "
+                 f"{len(probe_s)} probes; the reference probes {probes_want} "
+                 f"times")
+        del g
+    return launches
 
 
 def torch_dtypes():
@@ -1327,6 +1569,7 @@ def main() -> int:
     macro_launches = phase_macro_path(comp, res, idle_t1)
     del comp, res
     iso = phase_iso(env)
+    pattern_launches = phase_patterns()
     kernels = [dict(
         name="masked_intersect", route="cuda",
         source="src/repro_torch/kernels/csrc/masked_intersect.cu",
@@ -1336,9 +1579,11 @@ def main() -> int:
         bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"],
         library_ms=None,
         masked={k: v for k, v in iso.items() if k != "launches_by_t"},
+        pattern_probe=kernel["pattern_probe"],
         launches_by_path={
             "clique T=1": launches, f"clique T={MACRO_T}": macro_launches,
-            **{f"iso T={t}": n for t, n in iso["launches_by_t"].items()}})]
+            **{f"iso T={t}": n for t, n in iso["launches_by_t"].items()},
+            **pattern_launches})]
     for name, line in (("segment_matmul", 59), ("embedding_bag", 46),
                        ("flash_attention", 84)):
         # the fp32 record first; a bf16 one beside it where both run

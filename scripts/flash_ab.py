@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Another revision against this one for one kernel's wrapper, on one
 NVIDIA card, in one process: ``flash_attention`` (the default, in one
-dtype) or ``segment_matmul`` (in each dtype).
+dtype), ``segment_matmul`` (in each dtype) or ``masked_intersect`` (at
+each of its timed shapes).
 
     git archive <revision> | tar -x -C artifacts/other
     python3 scripts/flash_ab.py --other artifacts/other [--dtype fp32]
     python3 scripts/flash_ab.py --other artifacts/other --kernel segment_matmul
+    python3 scripts/flash_ab.py --other artifacts/other --kernel masked_intersect
 
 ``--other`` is the root of a checkout of another revision of this repo (any
 from the one that added ``src/repro_torch/kernels/flash_attention.py`` on).
@@ -21,12 +23,17 @@ timed on the same seeded inputs:
   ``NeighborSampler(planted_clique_graph(32768, 354000, 32, seed=0),
   batch_nodes=512, fanout=(25, 10), d_feat=256)``'s first sample (E =
   140,800, N = 141,313, D = 256), in fp32 and bf16 (or the one
-  ``--dtype`` names).
+  ``--dtype`` names);
+- ``masked_intersect`` on seeded random words at ``chip_smoke.py``'s
+  timed shapes: the clique path's (B=64 N=32768 W=1024) without and with
+  a row mask, and the pattern probe's (1,024 rows, one all-ones column,
+  1,024 words, masked).
 
 They take turns (other, this, this, other), each turn the median of
 ``REPS`` calls timed with CUDA events, as ``chip_smoke.py`` times a
 kernel.  Both outputs are held against the plain version with
-``chip_smoke.py``'s limits for that kernel and dtype first.  Prints the
+``chip_smoke.py``'s limits for that kernel and dtype first
+(``masked_intersect``: exactly).  Prints the
 card's name and power limit, one line per turn, and last a JSON line with
 every turn's time and each wrapper's mean of its two turns (for attention
 also the TFLOP/s of each, 4*H*D*S(S+1)/2 flops).
@@ -87,7 +94,14 @@ def segment_inputs():
 
 def take_turns(kernel: str, dt: str, run_other, run_this, want) -> dict:
     """Check both outputs, then time other, this, this, other."""
+    import torch
     for what, run in (("other", run_other), ("this", run_this)):
+        if kernel == "masked_intersect":
+            if not torch.equal(run(), want):
+                chip_smoke.fail(f"{kernel} {dt} {what}: differs from the "
+                                f"plain version")
+            print(f"{kernel} {dt} {what}: exact")
+            continue
         errs = chip_smoke.errors(kernel, dt, run(), want, what)
         rel = (f", of a head relative {errs['max_rel_err']:.3g}"
                if "max_rel_err" in errs else "")
@@ -117,7 +131,8 @@ def main() -> int:
     parser.add_argument("--other", type=Path, required=True,
                         help="root of a checkout of another revision")
     parser.add_argument("--kernel", default="flash_attention",
-                        choices=("flash_attention", "segment_matmul"),
+                        choices=("flash_attention", "segment_matmul",
+                                 "masked_intersect"),
                         help="the wrapper to time (default flash_attention)")
     parser.add_argument("--dtype", choices=("bf16", "fp32"),
                         help="attention's q/k/v dtype (default bf16); for "
@@ -138,6 +153,29 @@ def main() -> int:
             lambda: fa.flash_attention(q, k, v),
             fa.flash_attention_plain(q, k, v))]
         shape = {"H": H, "S": S, "D": D, "causal": True}
+    elif args.kernel == "masked_intersect":
+        from repro_torch.kernels import masked_intersect as mi
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+
+        def words(*shape):
+            return torch.randint(-2**31, 2**31, shape, generator=gen,
+                                 dtype=torch.int64, device="cuda").int()
+        results, shape = [], {}
+        for name, (b, n, w), masked in (
+                ("clique", chip_smoke.MAIN_SHAPE, False),
+                ("clique masked", chip_smoke.MAIN_SHAPE, True),
+                ("pattern probe", chip_smoke.PROBE_SHAPE, True)):
+            a = words(b, w)
+            cols = torch.full((n, w), -1, dtype=torch.int32, device="cuda") \
+                if name == "pattern probe" else words(n, w)
+            mask = words(b, w) if masked else None
+            results.append(take_turns(
+                "masked_intersect", name,
+                lambda: other.masked_intersect(a, cols, mask),
+                lambda: mi.masked_intersect(a, cols, mask),
+                mi.masked_intersect_plain(a, cols, mask)))
+            shape[name] = {"B": b, "N": n, "W": w, "masked": masked}
     else:
         from repro_torch.kernels import segment_matmul as sm
         feats, src, dst, n = segment_inputs()

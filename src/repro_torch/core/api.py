@@ -5,7 +5,8 @@ the paper's five user functions): states are fixed-width ``int32`` rows,
 actions are integers in ``[0, num_actions)``, ``score_children`` returns
 ``NEG`` priority for every (state, action) that must not be created.  The
 callbacks take and return ``torch`` tensors on :attr:`SubgraphComputation.
-device`, which is where the engine keeps its pool.
+device`, which is where the engine keeps its pool.  :func:`from_pointwise`
+builds one from scalar functions over a single state, vmapped.
 """
 from __future__ import annotations
 
@@ -13,8 +14,14 @@ import dataclasses
 from typing import Callable, Optional, Tuple, Union
 
 import torch
+from torch.func import vmap
 
 NEG = torch.iinfo(torch.int32).min  # "-inf" for int32 keys
+
+# elements that the pointwise callbacks' vmapped calls may hold at once,
+# counting each call as its state unpacked to bits (32 per word), as
+# masked_intersect_plain bounds its chunks
+POINTWISE_MAX_ELEMENTS = 1 << 26
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -71,3 +78,72 @@ class SubgraphComputation:
             raise ValueError(
                 f"{self.name}: num_actions must be positive, "
                 f"got {self.num_actions}")
+
+
+def chunk_size(calls: int, per_call: int) -> Optional[int]:
+    """``chunk_size`` for a vmap of ``calls`` calls that hold ``per_call``
+    elements each: as many as fit in :data:`POINTWISE_MAX_ELEMENTS`, None
+    when all of them do."""
+    size = max(1, POINTWISE_MAX_ELEMENTS // max(1, per_call))
+    return None if size >= calls else size
+
+
+def from_pointwise(name: str,
+                   state_width: int,
+                   num_actions: int,
+                   init_frontier,
+                   expandable,       # (state [S], action) -> bool
+                   child_priority,   # (state [S], action) -> int32
+                   child_ub,         # (state [S], action) -> int32
+                   materialize_one,  # (state [S], action) -> state [S]
+                   relevant,         # (state [S]) -> bool
+                   result_key_one,   # (state [S]) -> int32
+                   upper_bound_one,  # (state [S]) -> int32
+                   describe=None,
+                   device=None) -> SubgraphComputation:
+    """Succinct per-subgraph API (the paper's Listing-1 style), vmapped.
+
+    Users write scalar functions over a single state (0-d tensors for an
+    action and a result; no ``.item()`` and no Python branch on a tensor);
+    this adapter builds the batched computation on ``device`` (default
+    ``cuda``) with ``torch.func.vmap``, over states and then over actions.
+    The ``[B, A, ...]`` that the per-action map would hold at once is cut
+    into chunks of actions (``vmap``'s ``chunk_size``) so that it stays
+    within :data:`POINTWISE_MAX_ELEMENTS`, counting each call as its state
+    unpacked to bits; the numbers are the same for any chunking.  The fused
+    batched path (e.g. :mod:`repro_torch.core.clique`) is preferred for hot
+    computations.
+    """
+    device = resolve_device(device)
+    actions = torch.arange(num_actions, dtype=torch.int32, device=device)
+    per_call = 32 * state_width
+
+    def score_children(states):
+        def per_state(s):
+            def per_action(a):
+                ok = expandable(s, a)
+                return (torch.where(ok, child_priority(s, a), NEG),
+                        torch.where(ok, child_ub(s, a), NEG))
+            return vmap(per_action, chunk_size=chunk_size(
+                num_actions, states.shape[0] * per_call))(actions)
+        return vmap(per_state)(states)
+
+    def materialize(states, acts):
+        return vmap(materialize_one, chunk_size=chunk_size(
+            states.shape[0], per_call))(states, acts)
+
+    def result_key(states):
+        def one(s):
+            return torch.where(relevant(s), result_key_one(s), NEG)
+        return vmap(one, chunk_size=chunk_size(states.shape[0], per_call))(
+            states)
+
+    def upper_bound(states):
+        return vmap(upper_bound_one, chunk_size=chunk_size(
+            states.shape[0], per_call))(states)
+
+    return SubgraphComputation(
+        name=name, state_width=state_width, num_actions=num_actions,
+        init_frontier=init_frontier, score_children=score_children,
+        materialize=materialize, result_key=result_key,
+        upper_bound=upper_bound, describe=describe, device=device)

@@ -33,6 +33,18 @@
 // and are never stored: no padding copies, unlike the TPU version.  Wider
 // row tiles (so that b is read fewer times) and cp.async/TMA staging are
 // later work.
+//
+// Row tiles go on blockIdx.y, whose grid limit is 65,535 tiles (B <=
+// 4,194,240 rows: every clique and iso shape).  A taller call (pattern
+// edge probes pad their rows to a power of two, so 2^21 + 1 pairs make
+// 2^22 rows) is launched as one grid per 4,194,240 rows, each on its own
+// slice of a, mask and out, so that any B < 2^31 launches.
+//
+// The pattern probe's shape, [Ep <= 1,024 rows] x [1 column] x [W words]
+// with a row mask, leaves 63 of the tile's 64 columns empty and puts one
+// block on each of Ep / 64 SMs.  At 8.4 MB a probe its bytes bound is a
+// few microseconds, far below what this tile takes; a one-column variant
+// is later work.
 #include <cstddef>
 #include <cstdint>
 
@@ -121,16 +133,30 @@ masked_intersect_kernel(const uint32_t* __restrict__ a,
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// Launches on `stream` and returns cudaGetLastError() (0 = launched): one
+// grid for up to kMaxGridRows rows, one grid per kMaxGridRows-row slice of
+// a taller call.
 extern "C" int masked_intersect_launch(const void* a, const void* mask,
                                        const void* b, void* out, int B,
                                        int N, int W, void* stream) {
-  const dim3 grid((N + kTileCols - 1) / kTileCols,
-                  (B + kTileRows - 1) / kTileRows);
-  masked_intersect_kernel<<<grid, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(mask),
-      static_cast<const uint32_t*>(b), static_cast<int32_t*>(out), B, N, W);
+  constexpr int64_t kMaxGridRows = 65535 * kTileRows;   // gridDim.y limit
+  for (int64_t row0 = 0; row0 < B; row0 += kMaxGridRows) {
+    const int rows = static_cast<int>(
+        B - row0 < kMaxGridRows ? B - row0 : kMaxGridRows);
+    const size_t in_off = static_cast<size_t>(row0) * W;
+    const dim3 grid((N + kTileCols - 1) / kTileCols,
+                    (rows + kTileRows - 1) / kTileRows);
+    masked_intersect_kernel<<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(a) + in_off,
+        mask == nullptr ? nullptr
+                        : static_cast<const uint32_t*>(mask) + in_off,
+        static_cast<const uint32_t*>(b),
+        static_cast<int32_t*>(out) + static_cast<size_t>(row0) * N, rows, N,
+        W);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -100,8 +100,9 @@ def masked_intersect(a_bits: torch.Tensor, b_bits: torch.Tensor,
                      ) -> torch.Tensor:
     """``counts[r, c] = popcount(a[r] & mask[r] & b[c])``; int32 [B, N].
 
-    CUDA tensors go to the Hopper kernel (contiguous, B, N, W >= 1), CPU
-    tensors to :func:`masked_intersect_plain`; anything else raises."""
+    CUDA tensors go to the Hopper kernel (contiguous, 1 <= B, N, W <
+    2^31), CPU tensors to :func:`masked_intersect_plain`; anything else
+    raises."""
     global launches
     _check(a_bits, b_bits, mask_bits)
     device = a_bits.device
@@ -115,9 +116,9 @@ def masked_intersect(a_bits: torch.Tensor, b_bits: torch.Tensor,
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("masked_intersect kernel needs contiguous operands")
     (n_rows, w), n_cols = a_bits.shape, b_bits.shape[0]
-    if min(n_rows, n_cols, w) < 1:
-        raise ValueError(f"masked_intersect kernel needs B, N, W >= 1, got "
-                         f"B={n_rows} N={n_cols} W={w}")
+    if min(n_rows, n_cols, w) < 1 or max(n_rows, n_cols, w) >= 2 ** 31:
+        raise ValueError(f"masked_intersect kernel needs 1 <= B, N, W < "
+                         f"2^31, got B={n_rows} N={n_cols} W={w}")
     out = torch.empty((n_rows, n_cols), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         build.launch(

@@ -1,9 +1,9 @@
 """Quickstart: top-k subgraph discovery with the PyTorch port.
 
 Finds the maximum clique in a synthetic social graph on the card (or on
-the CPU with ``--device cpu``), the counterpart of ``examples/quickstart.py``.
-The Nuri-NP comparison of the reference quickstart waits for the port of
-``core/exhaustive.py`` (ROADMAP Queue 1, item 8).
+the CPU with ``--device cpu``), the counterpart of ``examples/quickstart.py``,
+and compares its candidate count with Nuri-NP's (no prioritization, no
+pruning).
 
     PYTHONPATH=src python -m repro_torch.quickstart [--device cpu]
 """
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.clique import make_clique_computation
 from repro_torch.core.engine import Engine, EngineConfig
+from repro_torch.core.exhaustive import nuri_np_clique_candidates
 from repro_torch.data.synthetic_graphs import planted_clique_graph
 
 
@@ -44,6 +45,13 @@ def main(argv=None):
     print(f"  candidates examined: {res.candidates}  "
           f"(expanded {res.expanded}, pruned {res.pruned}, "
           f"steps {res.steps})")
+
+    print("\ncomparing against Nuri-NP (no prioritization/pruning)...")
+    np_res = nuri_np_clique_candidates(g, max_candidates=2_000_000)
+    suffix = "" if np_res["completed"] else "+ (budget hit)"
+    print(f"  Nuri-NP candidates: {np_res['candidates']}{suffix}")
+    print(f"  reduction from prioritization+pruning: "
+          f"{np_res['candidates'] / res.candidates:.1f}x")
     return res
 
 

@@ -21,7 +21,10 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = list(_modules())
-    assert "repro_torch.core.engine" in mods and len(mods) >= 20
+    assert {"repro_torch.core.engine", "repro_torch.core.patterns",
+            "repro_torch.core.aggregate", "repro_torch.core.exhaustive",
+            "repro_torch.core.weighted_clique"} <= set(mods)
+    assert len(mods) >= 24
     code = (f"import {', '.join(mods)}; import sys; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "bad = [m for m in sys.modules "

@@ -89,6 +89,21 @@ def test_plain_version_chunks_rows(max_elements):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_plain_version_at_the_tall_probe_shape():
+    """One column, one word and 2^22 + 1 rows with a row mask: a probe's
+    shape past the 65,535 row tiles one CUDA grid dimension holds (the C
+    entry launches one grid per 4,194,240 rows there; chip_smoke.py phase
+    2 checks it on the card).  The plain version against numpy's bit count."""
+    rng = np.random.default_rng(22)
+    b = (1 << 22) + 1
+    a, cols, mask = _words(rng, b, 1), _words(rng, 1, 1), _words(rng, b, 1)
+    inter = (a & mask & cols[0])[:, 0]
+    want = sum((inter >> np.uint32(i)) & np.uint32(1) for i in range(32))
+    got = ops.masked_intersect(_t(a), _t(cols), _t(mask))
+    assert got.shape == (b, 1) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy()[:, 0], want.astype(np.int32))
+
+
 def test_cpu_path_does_not_count_launches():
     rng = np.random.default_rng(1)
     mi.reset_launches()
