@@ -28,11 +28,19 @@ each (plus detail):
    CSR build (``csr_by_node``) bit for bit against ``edges_by_node`` on
    random, sorted, one-node and all-dropped ``dst``, and one
    ``segment_matmul`` call shown to be one C call with no sort, search or
-   host read; ``masked_intersect`` also at the pattern probe's shapes
-   (masked, one all-ones column: 8 and 1,024 rows of 1,024 words, 1,000
-   of 104) with the 1,024-row call's time beside its bound, and at
-   4,194,305 rows of one word, past the 65,535 row tiles of one CUDA grid
-   dimension;
+   host read; ``masked_intersect``'s two kernels (the 64 x 64 tile and
+   the row-streaming kernel, each forced) and the call its plan picks,
+   all exact, at every ragged shape, at the pattern probe's shapes
+   (masked, one all-ones column: 8 and 1,024 rows of 1,024 words, 1,024
+   of 256, 1,000 of 104), each also from operands one word past a
+   16-byte boundary, and at 4,194,305 rows of one word (past the 65,535
+   row tiles of one CUDA grid dimension; the row kernel's one grid); at
+   1,024 rows of 1,024 and of 256 words, each kernel's time alone
+   (``queued_ms``) beside the plain version's and the bound, and the
+   call's from an idle card (the host's enqueue included); it fails
+   where the planned kernel is slower than the plain version there.
+   Then the cut-over sweep: both kernels exact and timed at 1,024 x N x
+   1,024, masked, N = 1 to 64, beside the plan's cut-over;
 3. the quickstart config, the spill probe (at ``steps_per_sync`` 1 and
    16) and a small iso run through the masked kernel (the reference's
    ``tests/test_kernels.py`` case, at ``steps_per_sync`` 1 and 16) on
@@ -94,19 +102,24 @@ each (plus detail):
    budget (``completed=False``), and (b) ``labeled_graph(8192, 88500,
    29, seed=0)``, the same density cut to the largest size of those runs
    that completes; each must give the reference's codes, supports and
-   counters and launch ``masked_intersect`` exactly once an edge probe
-   (856 and 2,218 times, the reference's probe counts), with one host read
-   a probe; one run each under ``torch.profiler``: wall, probes and their
-   summed host time (launch and read included), the kernel's device time,
-   the rest (the host's expansion) and peak device memory.
+   counters and launch ``masked_intersect``'s row kernel exactly once an
+   edge probe (856 and 2,218 times, the reference's probe counts), with
+   one host read a probe; one run each under ``torch.profiler``: wall,
+   probes and their summed host time (launch and read included), split
+   into its parts (the cached bitsets, the upload of the pairs, the two
+   gathers, the wrapper's launch, the blocking read, other torch calls,
+   numpy and Python), the kernel's device time, the rest (the host's
+   expansion) and peak device memory.
 
 The line before the last is the kernels' JSON record (each kernel's fp32
 numbers, and its bf16 numbers under ``bf16`` where phase 6 runs both,
 each with its own launch count; ``masked_intersect``'s mask-free numbers
 from phases 2 and 4, its masked form's at the iso shape under ``masked``
-with phase 9's launches, at the pattern probe's shape under
-``pattern_probe``, and the launches of each discovery path under
-``launches_by_path``); the last line is
+with phase 9's launches, at the pattern probe's shapes under
+``pattern_probes`` (the row kernel's times, the tile's beside them), the
+cut-over sweep under ``cutover`` with the plan's ``rows_max_cols``, and
+the launches of each discovery path under ``launches_by_path``); the
+last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result line.  Without a CUDA device, or without the repository's
 ``src/repro_torch`` beside this file, it fails at once.
@@ -163,11 +176,19 @@ RAGGED_SHAPES = ((1, 1, 1), (1, 16, 1), (5, 257, 1), (7, 1, 2), (13, 100, 7),
                  (32, 300, 4), (8, 128, 32), (67, 1000, 33))
 MAIN_SHAPE = (64, 32768, 1024)
 # the pattern probe's shape, masked: Ep padded rows x one all-ones column
-# (the fewest rows, the full-width probe's, and a ragged one), then more
-# rows than 65,535 row tiles of 64 (one CUDA grid dimension's limit)
-PROBE_SHAPES = ((8, 1, 1024), (1024, 1, 1024), (1000, 1, 104))
+# (the fewest rows, phase 10a's and 10b's widths, and a ragged one), then
+# more rows than 65,535 row tiles of 64 (one CUDA grid dimension's limit)
+PROBE_SHAPES = ((8, 1, 1024), (1024, 1, 1024), (1024, 1, 256),
+                (1000, 1, 104))
 PROBE_SHAPE = (1024, 1, 1024)
+TIMED_PROBE_SHAPES = ((1024, 1, 1024), (1024, 1, 256))
 TALL_SHAPE = ((1 << 22) + 1, 1, 1)
+# the row kernel's cut-over: the tile and the row kernel timed at Ep =
+# 1,024 rows of 1,024 words, masked, on N random columns
+CUTOVER_SWEEP = (1, 2, 4, 8, 16, 32, 64)
+# cycles of the spin kernel queued ahead of a timed call (about 2.5 ms at
+# 1.98 GHz, longer than any timed call takes the host to enqueue)
+SPIN_CYCLES = 5_000_000
 
 # phase 3: tests/test_kernels.py's pattern case (M = 3, k = 3), with the
 # reference package's answer and counters (CPU JAX, use_pallas False and
@@ -295,6 +316,40 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Median time of ``fn()``'s device work alone: a spin kernel queued
+    ahead of the start event keeps the card busy while the host enqueues
+    ``fn``, so the events read its kernels back to back and not the host's
+    enqueue (which :func:`cuda_ms` reads too where the call is shorter
+    than its enqueue).  Fails if an enqueue outlasted the spin."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    end.record()
+    end.synchronize()
+    spin_ms = start.elapsed_time(end)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        end.synchronize()
+        if host_ms > 0.8 * spin_ms:
+            fail(f"queued_ms: the enqueue took {host_ms:.3f} ms, the spin "
+                 f"ahead of it {spin_ms:.3f} ms")
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def ptxas_report(log: str) -> dict:
     """{kernel (mangled name): (registers, spill bytes)} from the
     ``ptxas -v`` lines of a build log."""
@@ -409,6 +464,27 @@ def masked_intersect_bound_ms(b: int, n: int, w: int, masked: bool,
                                    else "bytes")
 
 
+def check_mi(what: str, a, cols, mask, want=None) -> int:
+    """The planned call and both kernels forced (the tile, and the row
+    kernel as :func:`rows_plan` would run it) exactly equal to the plain
+    version; returns the largest difference (0)."""
+    import torch
+    from repro_torch.kernels import masked_intersect as mi
+    if want is None:
+        want = mi.masked_intersect_plain(a, cols, mask)
+    n, w = cols.shape
+    operands = (a, cols) if mask is None else (a, cols, mask)
+    planned = mi._plan(n, w, mi._aligned(*operands))
+    for plan in (None, mi.TILE, mi.rows_plan(n, w, mi._aligned(*operands))):
+        got = mi.masked_intersect(a, cols, mask, plan=plan)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if err:
+            fail(f"masked_intersect {what} {plan or planned}: max abs err "
+                 f"{err}")
+    return planned
+
+
 def phase_kernels(env: dict) -> dict:
     import numpy as np
     import torch
@@ -420,22 +496,25 @@ def phase_kernels(env: dict) -> dict:
         x = rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
         return torch.from_numpy(x.view(np.int32)).cuda()
 
-    max_err = 0
     record = None
     for (b, n, w) in RAGGED_SHAPES + (MAIN_SHAPE,):
         for masked in (False, True):
             a, cols = words(b, w), words(n, w)
             mask = words(b, w) if masked else None
-            got = mi.masked_intersect(a, cols, mask)
-            want = mi.masked_intersect_plain(a, cols, mask)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            max_err = max(max_err, err)
-            if err:
-                fail(f"masked_intersect B={b} N={n} W={w} mask={masked}: "
-                     f"max abs err {err}")
-            line = f"[2 kernel] masked_intersect B={b} N={n} W={w} " \
-                   f"mask={masked}: exact"
+            what = f"B={b} N={n} W={w} mask={masked}"
+            if (b, n, w) == MAIN_SHAPE:     # the planned call (the tile)
+                got = mi.masked_intersect(a, cols, mask)
+                want = mi.masked_intersect_plain(a, cols, mask)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"masked_intersect {what}: differs from its plain "
+                         f"version")
+                planned = mi._plan(n, w, True)
+            else:
+                planned = check_mi(what, a, cols, mask)
+            line = f"[2 kernel] masked_intersect {what}: exact " \
+                   f"({planned.variant} planned" + \
+                   ("" if (b, n, w) == MAIN_SHAPE else ", both kernels") + ")"
             if (b, n, w) == MAIN_SHAPE:
                 ms = cuda_ms(lambda: mi.masked_intersect(a, cols, mask), 20)
                 plain_ms = cuda_ms(
@@ -449,31 +528,70 @@ def phase_kernels(env: dict) -> dict:
                     record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by)
             print(line)
-    # the pattern probe's shapes: masked, one all-ones column
+    # the pattern probe's shapes: masked, one all-ones column; each also
+    # from operands one word past a 16-byte boundary (one word a load)
+    record["pattern_probes"] = []
     for (b, n, w) in PROBE_SHAPES + (TALL_SHAPE,):
-        a, mask = words(b, w), words(b, w)
+        store = words(2 * b * w + 1)
+        a, mask = store[:b * w].view(b, w), store[b * w:2 * b * w].view(b, w)
         cols = torch.full((n, w), -1, dtype=torch.int32, device="cuda")
-        got = mi.masked_intersect(a, cols, mask)
         want = mi.masked_intersect_plain(a, cols, mask)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            fail(f"masked_intersect B={b} N={n} W={w} mask=True (probe): "
-                 f"differs from its plain version")
+        planned = check_mi(f"B={b} N={n} W={w} (probe)", a, cols, mask, want)
+        shifted = store[1:b * w + 1].view(b, w)
+        shifted_want = mi.masked_intersect_plain(shifted, cols, mask)
+        check_mi(f"B={b} N={n} W={w} (probe, misaligned)", shifted, cols,
+                 mask, shifted_want)
         line = f"[2 kernel] masked_intersect B={b} N={n} W={w} mask=True " \
-               f"(pattern probe): exact"
-        if (b, n, w) == PROBE_SHAPE:
-            ms = cuda_ms(lambda: mi.masked_intersect(a, cols, mask), 20)
-            plain_ms = cuda_ms(
-                lambda: mi.masked_intersect_plain(a, cols, mask), 20)
+               f"(pattern probe): exact, both kernels, aligned and one " \
+               f"word off ({planned})"
+        if (b, n, w) in TIMED_PROBE_SHAPES:
+            ms = queued_ms(lambda: mi.masked_intersect(a, cols, mask))
+            tile_ms = queued_ms(
+                lambda: mi.masked_intersect(a, cols, mask, plan=mi.TILE))
+            plain_ms = queued_ms(
+                lambda: mi.masked_intersect_plain(a, cols, mask))
+            call_ms = cuda_ms(lambda: mi.masked_intersect(a, cols, mask), 20)
+            tile_call_ms = cuda_ms(
+                lambda: mi.masked_intersect(a, cols, mask, plan=mi.TILE), 20)
             bound_ms, bound_by = masked_intersect_bound_ms(b, n, w, True,
                                                            env)
-            line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                     f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms=null")
-            record["pattern_probe"] = dict(
-                shape=[b, n, w], max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            line += (f" ms={ms:.4f} tile_ms={tile_ms:.4f} "
+                     f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                     f"({bound_by}) library_ms=null; from an idle card "
+                     f"(host enqueue included) call_ms={call_ms:.4f} "
+                     f"tile_call_ms={tile_call_ms:.4f}")
+            record["pattern_probes"].append(dict(
+                shape=[b, n, w], kernel=planned.variant, max_abs_err=0,
+                ms=ms, tile_ms=tile_ms, plain_ms=plain_ms, call_ms=call_ms,
+                tile_call_ms=tile_call_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None))
+            if ms > plain_ms:
+                fail(f"masked_intersect B={b} N={n} W={w} (probe): "
+                     f"{ms:.4f} ms, slower than its plain version "
+                     f"({plain_ms:.4f} ms)")
         print(line)
-    record["max_abs_err"] = max_err
+    # the cut-over: both kernels at each N, exact and timed
+    record["cutover"] = []
+    b, w = PROBE_SHAPE[0], PROBE_SHAPE[2]
+    a, mask = words(b, w), words(b, w)
+    for n in CUTOVER_SWEEP:
+        cols = words(n, w)
+        planned = check_mi(f"B={b} N={n} W={w} mask=True (sweep)", a, cols,
+                           mask)
+        rows = mi.rows_plan(n, w, True)
+        rows_ms = queued_ms(
+            lambda: mi.masked_intersect(a, cols, mask, plan=rows))
+        tile_ms = queued_ms(
+            lambda: mi.masked_intersect(a, cols, mask, plan=mi.TILE))
+        record["cutover"].append(dict(n=n, rows_ms=rows_ms, tile_ms=tile_ms))
+        print(f"[2 kernel] masked_intersect B={b} N={n} W={w} mask=True "
+              f"(cut-over sweep): exact, both kernels; rows_ms={rows_ms:.4f} "
+              f"tile_ms={tile_ms:.4f} ({planned.variant} planned)")
+    won = [c["n"] for c in record["cutover"] if c["rows_ms"] < c["tile_ms"]]
+    print(f"[2 kernel] masked_intersect cut-over: the row kernel is faster "
+          f"at N in {won}; the plan takes it up to N = {mi.ROWS_MAX_COLS}")
+    record["rows_max_cols"] = mi.ROWS_MAX_COLS
+    record["max_abs_err"] = 0
     return record
 
 
@@ -627,6 +745,9 @@ def phase_main_path() -> int:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = mi.launches
+    if mi.launches_by_variant != {"tile": launches, "rows": 0}:
+        fail(f"the main path's launches by kernel: {mi.launches_by_variant}; "
+             f"its N = {g.n} columns take the tile")
 
     members = np.random.default_rng(FULL_GRAPH["seed"]).choice(
         FULL_GRAPH["n"], FULL_GRAPH["clique_size"], replace=False)
@@ -955,12 +1076,84 @@ def phase_iso(env: dict) -> dict:
                                for t in (1, MACRO_T)})
 
 
+# a probe's host time, split by what it calls (probe_split)
+PROBE_PARTS = ("bitsets", "upload", "gathers", "launch", "read", "other")
+# the row kernel's name in a profiler trace (csrc/masked_intersect.cu)
+MI_ROWS_KERNEL = "masked_intersect_kernel_rows"
+
+
+@contextlib.contextmanager
+def probe_split(patterns, probe_s: list, parts: dict):
+    """Times every ``patterns._edge_probe`` call in the block on the host:
+    appends its time to ``probe_s`` and adds its parts to ``parts``, by
+    what it does: the cached device
+    bitsets (``_device_bits``; the first probe of a graph builds them), the
+    upload of the pairs (``from_numpy(...).to``), the two row gathers
+    (``adj_d[up]``, ``eye_d[vp]``: indexing by a tensor), the kernel's
+    wrapper (``ops.masked_intersect``: its checks, the output's allocation
+    and the launch), the blocking read (``.cpu()``, ``.numpy()``: it waits
+    for the gathers and the kernel) and every other torch call.  A torch
+    function mode times the torch calls; what is left of a probe's time is
+    numpy and Python.  Nothing of the port's module is edited: its two
+    callees are swapped for timed ones while the block runs."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    def part_of(func, args) -> str:
+        if func in (torch.from_numpy, torch.Tensor.to):
+            return "upload"
+        if func is torch.Tensor.__getitem__ and \
+                isinstance(args[1], torch.Tensor):
+            return "gathers"
+        if func in (torch.Tensor.cpu, torch.Tensor.numpy):
+            return "read"
+        return "other"
+
+    class Split(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            t = time.perf_counter()
+            out = func(*args, **(kwargs or {}))
+            parts[part_of(func, args)] += time.perf_counter() - t
+            return out
+
+    def timed(part, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            with torch._C.DisableTorchFunction():
+                out = fn(*args, **kwargs)
+            parts[part] += time.perf_counter() - t
+            return out
+        return call
+
+    real_probe = patterns._edge_probe
+    real_bits, real_mi = patterns._device_bits, patterns.kops.masked_intersect
+
+    def probe(*args, **kwargs):
+        t = time.perf_counter()
+        with Split():
+            out = real_probe(*args, **kwargs)
+        probe_s.append(time.perf_counter() - t)
+        return out
+
+    patterns._edge_probe = probe
+    patterns._device_bits = timed("bitsets", real_bits)
+    patterns.kops.masked_intersect = timed("launch", real_mi)
+    try:
+        yield
+    finally:
+        patterns._edge_probe = real_probe
+        patterns._device_bits = real_bits
+        patterns.kops.masked_intersect = real_mi
+
+
 def phase_patterns() -> dict:
     """Top-k pattern mining at full width on the kernel path: each cell of
     ``PATTERN_CELLS`` once, under torch.profiler, with every edge probe
     timed on the host (its kernel launch and its device->host read
-    included); the reference's answer and exactly its number of probes as
-    ``masked_intersect`` launches.  Returns the launches by cell."""
+    included) and split into its parts (:func:`probe_split`); the
+    reference's answer and exactly its number of probes as
+    ``masked_intersect`` launches, every one of them the row kernel.
+    Returns the launches by cell."""
     import tempfile
     import torch
     from repro_torch.core import patterns
@@ -970,35 +1163,25 @@ def phase_patterns() -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     launches = {}
-    real_probe = patterns._edge_probe
     for cell, (graph, want, probes_want) in PATTERN_CELLS.items():
         t0 = time.perf_counter()
         g = labeled_graph(**graph)
         graph_s = time.perf_counter() - t0
-        probe_s = []
-
-        def timed_probe(*args, **kwargs):
-            t = time.perf_counter()
-            out = real_probe(*args, **kwargs)
-            probe_s.append(time.perf_counter() - t)
-            return out
-
+        probe_s, parts = [], dict.fromkeys(PROBE_PARTS, 0.0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        patterns._edge_probe = timed_probe
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                mi.reset_launches()
-                patterns.reset_reads()
-                t0 = time.perf_counter()
-                res = topk_frequent_patterns(g, **PATTERN_M, use_pallas=True,
-                                             device="cuda")
-                torch.cuda.synchronize()
-                wall_s = time.perf_counter() - t0
-                launches[cell], reads = mi.launches, patterns.reads
-        finally:
-            patterns._edge_probe = real_probe
+        with probe_split(patterns, probe_s, parts), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+            mi.reset_launches()
+            patterns.reset_reads()
+            t0 = time.perf_counter()
+            res = topk_frequent_patterns(g, **PATTERN_M, use_pallas=True,
+                                         device="cuda")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches[cell], reads = mi.launches, patterns.reads
+            by_variant = dict(mi.launches_by_variant)
         peak = torch.cuda.max_memory_allocated()
         with tempfile.TemporaryDirectory() as tmp:
             prof.export_chrome_trace(f"{tmp}/trace.json")
@@ -1006,7 +1189,9 @@ def phase_patterns() -> dict:
         kernel_ms = sum(ms for name, ms in by_name.items()
                         if MI_KERNEL in name)
         traced = kernel_launches(counts, MI_KERNEL)
+        traced_rows = kernel_launches(counts, MI_ROWS_KERNEL)
         got = {f: getattr(res, f) for f in PATTERN_RESULT_FIELDS}
+        n_probes = max(1, len(probe_s))
         print(f"[10 pattern] {cell}: N={g.n} edges={g.num_edges} "
               f"labels={g.n_labels} graph={graph_s:.2f}s "
               f"supports={[sup for sup, _ in res.patterns]} "
@@ -1017,18 +1202,26 @@ def phase_patterns() -> dict:
               f"(launch + read; max {1e3 * max(probe_s, default=0):.3f} ms) "
               f"kernel_device={kernel_ms:.3f} ms "
               f"({1e3 * kernel_ms / max(1, traced):.2f} us a launch, "
-              f"{traced} in the trace) device_busy={busy_s:.3f}s "
+              f"{traced} in the trace, {traced_rows} of the row kernel) "
+              f"device_busy={busy_s:.3f}s "
+              f"idle_share={1 - busy_s / wall_s:.4f} "
               f"rest (host expansion)={wall_s - sum(probe_s):.3f}s "
-              f"masked_intersect_launches={launches[cell]} host_reads={reads} "
-              f"peak_mem={peak / 2**30:.2f}GiB")
+              f"masked_intersect_launches={launches[cell]} {by_variant} "
+              f"host_reads={reads} peak_mem={peak / 2**30:.2f}GiB")
+        rest = sum(probe_s) - sum(parts.values())
+        print(f"[10 pattern] {cell}: a probe's host time, summed s (ms a "
+              f"probe): " + " ".join(
+                  f"{k}={v:.4f} ({1e3 * v / n_probes:.4f})"
+                  for k, v in parts.items()) +
+              f" numpy+python={rest:.4f} ({1e3 * rest / n_probes:.4f})")
         if got != want:
             fail(f"{cell}: {got}, reference {want}")
         if not launches[cell] == reads == len(probe_s) == traced == \
-                probes_want:
+                traced_rows == by_variant["rows"] == probes_want:
             fail(f"{cell}: {launches[cell]} masked_intersect launches "
-                 f"({traced} in the trace), {reads} host reads and "
-                 f"{len(probe_s)} probes; the reference probes {probes_want} "
-                 f"times")
+                 f"({by_variant}; {traced} in the trace, {traced_rows} of "
+                 f"the row kernel), {reads} host reads and {len(probe_s)} "
+                 f"probes; the reference probes {probes_want} times")
         del g
     return launches
 
@@ -1579,7 +1772,8 @@ def main() -> int:
         bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"],
         library_ms=None,
         masked={k: v for k, v in iso.items() if k != "launches_by_t"},
-        pattern_probe=kernel["pattern_probe"],
+        pattern_probes=kernel["pattern_probes"], cutover=kernel["cutover"],
+        rows_max_cols=kernel["rows_max_cols"],
         launches_by_path={
             "clique T=1": launches, f"clique T={MACRO_T}": macro_launches,
             **{f"iso T={t}": n for t, n in iso["launches_by_t"].items()},

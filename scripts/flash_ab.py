@@ -27,16 +27,17 @@ timed on the same seeded inputs:
 - ``masked_intersect`` on seeded random words at ``chip_smoke.py``'s
   timed shapes: the clique path's (B=64 N=32768 W=1024) without and with
   a row mask, and the pattern probe's (1,024 rows, one all-ones column,
-  1,024 words, masked).
+  masked) at phase 10a's width of 1,024 words and phase 10b's of 256.
 
 They take turns (other, this, this, other), each turn the median of
 ``REPS`` calls timed with CUDA events, as ``chip_smoke.py`` times a
-kernel.  Both outputs are held against the plain version with
-``chip_smoke.py``'s limits for that kernel and dtype first
-(``masked_intersect``: exactly).  Prints the
-card's name and power limit, one line per turn, and last a JSON line with
-every turn's time and each wrapper's mean of its two turns (for attention
-also the TFLOP/s of each, 4*H*D*S(S+1)/2 flops).
+kernel (``masked_intersect``: its device work alone, behind a queued
+spin kernel, ``chip_smoke.queued_ms``).  Both outputs are held against
+the plain version with ``chip_smoke.py``'s limits for that kernel and
+dtype first (``masked_intersect``: exactly).  Prints the card's name and
+power limit, one line per turn, and last a JSON line with every turn's
+time and each wrapper's mean of its two turns (for attention also the
+TFLOP/s of each, 4*H*D*S(S+1)/2 flops).
 """
 from __future__ import annotations
 
@@ -109,8 +110,9 @@ def take_turns(kernel: str, dt: str, run_other, run_this, want) -> dict:
               f"{errs['max_abs_err']:.3g}{rel}")
     turns = []
     for what in ("other", "this", "this", "other"):
-        ms = chip_smoke.cuda_ms(run_other if what == "other" else run_this,
-                                REPS)
+        run = run_other if what == "other" else run_this
+        ms = chip_smoke.queued_ms(run, REPS) \
+            if kernel == "masked_intersect" else chip_smoke.cuda_ms(run, REPS)
         turns.append((what, ms))
         rate = (f", {FLOPS / ms / 1e9:.1f} TFLOP/s"
                 if kernel == "flash_attention" else "")
@@ -165,10 +167,11 @@ def main() -> int:
         for name, (b, n, w), masked in (
                 ("clique", chip_smoke.MAIN_SHAPE, False),
                 ("clique masked", chip_smoke.MAIN_SHAPE, True),
-                ("pattern probe", chip_smoke.PROBE_SHAPE, True)):
+                *((f"pattern probe W={shape[2]}", shape, True)
+                  for shape in chip_smoke.TIMED_PROBE_SHAPES)):
             a = words(b, w)
             cols = torch.full((n, w), -1, dtype=torch.int32, device="cuda") \
-                if name == "pattern probe" else words(n, w)
+                if name.startswith("pattern probe") else words(n, w)
             mask = words(b, w) if masked else None
             results.append(take_turns(
                 "masked_intersect", name,

@@ -9,27 +9,41 @@ call shapes of the workloads are those of ``repro.kernels.masked_intersect``
 (clique cross counts, iso membership against ``eye_table`` columns, pattern
 pair probes).
 
-On the card, :func:`masked_intersect` launches the hand-written Hopper
-kernel ``csrc/masked_intersect.cu``, which replaces the TPU kernel
-``repro/kernels/masked_intersect.py::_kernel`` / ``::_kernel_masked``.  At
-the main-path shape (B=64, N=32768, W=1024) it does 2.15e9 AND+popcount
-word operations on 143 MB of compulsory traffic, so ``__popc`` throughput
-bounds it (0.51 ms at 16 popcounts per clock per SM, 132 SMs, 1.98 GHz;
-the bytes alone take 0.04 ms).  The design is a simple tile: each block
-owns 64 rows x 64 columns, loops over W in 32-word chunks staged in shared
-memory, and each thread accumulates a 4 x 4 register tile of ``__popc``
-sums; ragged edges are masked in the kernel, not padded.  The source note
-has the detail.
+On the card, :func:`masked_intersect` launches one of two hand-written
+Hopper kernels in ``csrc/masked_intersect.cu``, which together replace the
+TPU kernel ``repro/kernels/masked_intersect.py::_kernel`` /
+``::_kernel_masked``.  :func:`_plan` picks one per call from its shape and
+its pointers, here in Python, so that the CPU tests pin the choice:
+
+- the **tile** for calls wider than :data:`ROWS_MAX_COLS` columns (clique
+  and iso: B=64, N=32768, W=1024).  There the call does 2.15e9 AND+popcount
+  word operations on 143 MB of compulsory traffic, so ``__popc`` throughput
+  bounds it (0.51 ms at 16 popcounts per clock per SM, 132 SMs, 1.98 GHz;
+  the bytes alone take 0.04 ms).  Each block owns 64 rows x 64 columns,
+  loops over W in 32-word chunks staged in shared memory, and each thread
+  accumulates a 4 x 4 register tile of ``__popc`` sums.
+- the **row-streaming** kernel for at most :data:`ROWS_MAX_COLS` columns
+  (the pattern probe: Ep <= 1,024 rows, one column, W words, masked).
+  That call is bound by bytes (8.4 MB at W=1024), and the tile would use
+  Ep / 64 SMs and leave 63 of its 64 columns empty.  Here ``lanes``
+  threads of a warp stream one row, 16 bytes a load where W and the
+  pointers allow it (``vector``), one word a load otherwise, over a
+  one-dimensional grid of rows that fills the card; each lane keeps one
+  sum per column (``cols`` of them a pass) and the row's lanes reduce them
+  by shuffles.
+
+Ragged edges are masked in the kernels, not padded.  The source note has
+the detail.
 
 On the CPU, :func:`masked_intersect` runs :func:`masked_intersect_plain`,
 the plain PyTorch version that the CPU tests use and that the card's smoke
-run compares the kernel with.  It does so only because the tensors lie on
-the CPU: for a CUDA tensor the wrapper launches the kernel or raises.
+run compares the kernels with.  It does so only because the tensors lie on
+the CPU: for a CUDA tensor the wrapper launches a kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,13 +54,16 @@ from . import build
 # at once (256 MiB of int32 plus the popcount temporaries)
 PLAIN_MAX_ELEMENTS = 1 << 26
 
-#: kernel launches so far (the plain version does not count)
+#: kernel launches so far (the plain version does not count), and of them
+#: those of each kernel (:class:`Plan`'s ``variant``)
 launches = 0
+launches_by_variant = {"tile": 0, "rows": 0}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_variant.update(tile=0, rows=0)
 
 
 def masked_intersect_plain(a_bits: torch.Tensor, b_bits: torch.Tensor,
@@ -89,20 +106,75 @@ def _check(a_bits, b_bits, mask_bits) -> None:
                          f"shape {tuple(a_bits.shape)}")
 
 
-# pointers and the stream as c_void_p, shapes as C ints
+#: the most columns a call may have to take the row-streaming kernel: the
+#: largest N at which it beat the tile in chip_smoke.py's phase 2 sweep
+#: (N = 1 to 64 at 1,024 rows x 1,024 words, masked; PERF.md)
+ROWS_MAX_COLS = 64
+#: the most column sums a lane of the row kernel keeps in registers (its
+#: templates: powers of two up to this), and the most threads on one row
+ROW_MAX_SUMS = 32
+ROW_MAX_LANES = 32          # a warp
+
+
+class Plan(NamedTuple):
+    """Which kernel a call launches, and how."""
+    variant: str        # "tile" or "rows"
+    lanes: int          # rows: threads a row; 0 for the tile
+    vector: bool        # rows: 16-byte loads (else one word a load)
+    cols: int           # rows: column sums a lane keeps a pass; 0 for tile
+
+
+TILE = Plan("tile", 0, False, 0)
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def rows_plan(n_cols: int, w: int, aligned: bool) -> Plan:
+    """The row-streaming kernel for ``n_cols`` columns of ``w`` words:
+    16-byte loads when ``w % 4 == 0`` and every operand's base pointer is
+    16-byte aligned (``aligned``); as many lanes a row as there are loads
+    in it, a power of two up to a warp; as many column sums a lane as
+    there are columns, a power of two up to 32 (more columns take more
+    passes)."""
+    vector = aligned and w % 4 == 0
+    loads = w // 4 if vector else w
+    return Plan("rows", min(ROW_MAX_LANES, _next_pow2(loads)), vector,
+                min(ROW_MAX_SUMS, _next_pow2(n_cols)))
+
+
+def _plan(n_cols: int, w: int, aligned: bool) -> Plan:
+    """The kernel for a call of ``n_cols`` columns of ``w`` words: the row
+    kernel up to :data:`ROWS_MAX_COLS` columns, the tile above."""
+    if n_cols <= ROWS_MAX_COLS:
+        return rows_plan(n_cols, w, aligned)
+    return TILE
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+# pointers and the stream as c_void_p; shapes and the plan (variant,
+# lanes, vector, cols) as C ints
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p)
+_VARIANTS = {"tile": 0, "rows": 1}
 
 
 def masked_intersect(a_bits: torch.Tensor, b_bits: torch.Tensor,
-                     mask_bits: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     mask_bits: Optional[torch.Tensor] = None,
+                     plan: Optional[Plan] = None) -> torch.Tensor:
     """``counts[r, c] = popcount(a[r] & mask[r] & b[c])``; int32 [B, N].
 
-    CUDA tensors go to the Hopper kernel (contiguous, 1 <= B, N, W <
-    2^31), CPU tensors to :func:`masked_intersect_plain`; anything else
-    raises."""
+    CUDA tensors go to a Hopper kernel (contiguous, 1 <= B, N, W < 2^31),
+    the one :func:`_plan` picks unless ``plan`` names another (the smoke
+    run times both kernels at one shape so); CPU tensors go to
+    :func:`masked_intersect_plain`; anything else raises."""
     global launches
     _check(a_bits, b_bits, mask_bits)
     device = a_bits.device
@@ -119,12 +191,16 @@ def masked_intersect(a_bits: torch.Tensor, b_bits: torch.Tensor,
     if min(n_rows, n_cols, w) < 1 or max(n_rows, n_cols, w) >= 2 ** 31:
         raise ValueError(f"masked_intersect kernel needs 1 <= B, N, W < "
                          f"2^31, got B={n_rows} N={n_cols} W={w}")
+    if plan is None:
+        plan = _plan(n_cols, w, _aligned(*operands))
     out = torch.empty((n_rows, n_cols), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         build.launch(
             "masked_intersect", _ARGTYPES, a_bits.data_ptr(),
             None if mask_bits is None else mask_bits.data_ptr(),
             b_bits.data_ptr(), out.data_ptr(), n_rows, n_cols, w,
+            _VARIANTS[plan.variant], plan.lanes, int(plan.vector), plan.cols,
             torch.cuda.current_stream(device).cuda_stream)
     launches += 1
+    launches_by_variant[plan.variant] += 1
     return out

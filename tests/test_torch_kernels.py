@@ -47,9 +47,16 @@ def test_frontier_expand(b, n, w):
         port_ref.frontier_expand_ref(_t(p), _t(ext)).numpy(), want)
 
 
-# ragged on purpose: W=1, B/N not multiples of any block size, N=1
+# the row kernel's cut-over (columns); narrow calls up to it take the row
+# kernel on the card, wider ones the tile
+K = mi.ROWS_MAX_COLS
+
+
+# ragged on purpose: W=1, B/N not multiples of any block size, N=1; then
+# narrow calls around the cut-over at odd, ragged and probe widths
 @pytest.mark.parametrize("b,n,w", [(1, 16, 1), (5, 257, 1), (13, 100, 7),
-                                   (32, 300, 4), (7, 1, 2)])
+                                   (32, 300, 4), (7, 1, 2)] + [
+    (5, n, w) for n in (1, 2, 3, K, K + 1) for w in (1, 7, 104, 256)])
 @pytest.mark.parametrize("with_mask", [False, True])
 def test_masked_intersect_matches_reference(b, n, w, with_mask):
     rng = np.random.default_rng(b * n * w + with_mask)
@@ -126,3 +133,57 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         a, cols = a.to("meta"), cols.to("meta")
     with pytest.raises((TypeError, ValueError)):
         mi.masked_intersect(a, cols, mask)
+
+
+# (lanes, vector, cols) the row kernel takes at each probe shape of
+# chip_smoke.py phase 2, operands 16-byte aligned: (B, N, W) -> plan
+PROBE_PLANS = {(8, 1, 1024): (32, True, 1), (1024, 1, 1024): (32, True, 1),
+               (1024, 1, 256): (32, True, 1), (1000, 1, 104): (32, True, 1),
+               ((1 << 22) + 1, 1, 1): (1, False, 1)}
+
+
+def test_plan_takes_the_tile_for_the_clique_and_iso_shapes():
+    """The main path's N = 32,768 (clique cross counts without a mask, iso
+    membership against eye_table with one) stays on the 64 x 64 tile."""
+    assert mi._plan(32768, 1024, True) == mi.TILE
+    assert mi._plan(32768, 1024, False) == mi.TILE
+
+
+@pytest.mark.parametrize("shape", sorted(PROBE_PLANS))
+def test_plan_takes_the_row_kernel_at_every_probe_shape(shape):
+    _, n, w = shape
+    assert mi._plan(n, w, True) == mi.Plan("rows", *PROBE_PLANS[shape])
+
+
+@pytest.mark.parametrize("w,lanes", [(1, 1), (2, 2), (7, 8), (33, 32),
+                                     (1023, 32)])
+def test_plan_reads_one_word_a_load_at_a_width_not_of_four_words(w, lanes):
+    plan = mi._plan(1, w, True)
+    assert plan == mi.Plan("rows", lanes, False, 1)
+
+
+def test_plan_reads_one_word_a_load_from_a_misaligned_pointer():
+    """A view that starts one word into its storage is not 16-byte aligned:
+    the row kernel then reads one word at a time, even at W = 1,024."""
+    store = torch.zeros(1 + 8 * 1024, dtype=torch.int32)
+    aligned = store[:8 * 1024].view(8, 1024)
+    shifted = store[1:].view(8, 1024)
+    ones = torch.full((1, 1024), -1, dtype=torch.int32)
+    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 4
+    assert mi._aligned(aligned, ones, aligned)
+    assert not mi._aligned(shifted, ones, aligned)
+    assert not mi._aligned(aligned, ones, shifted)
+    assert mi._plan(1, 1024, mi._aligned(shifted, ones)) == \
+        mi.Plan("rows", 32, False, 1)
+    assert mi._plan(1, 1024, mi._aligned(aligned, ones)) == \
+        mi.Plan("rows", 32, True, 1)
+
+
+@pytest.mark.parametrize("w", [1, 7, 104, 256, 1024])
+def test_plan_cuts_over_at_k(w):
+    """Up to K columns the row kernel, above it the tile; the row kernel
+    keeps at most 32 column sums a lane and takes more passes beyond."""
+    assert mi._plan(K, w, True).variant == "rows"
+    assert mi._plan(K + 1, w, True) == mi.TILE
+    assert [mi._plan(n, w, True).cols for n in (1, 2, 3, 5, 17, 33, K)] == \
+        [1, 2, 4, 8, 32, 32, 32]
