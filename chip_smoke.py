@@ -7,8 +7,9 @@ Builds the CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, drives the port's
 paths — single-device maximum-clique discovery one super-step a host read
 and in macro-steps, labeled subgraph isomorphism, top-k pattern mining,
-and the co-workload path from the data pipeline through the float
-kernels — at full width, and prints where the time went.  Phases, one line
+durable runs killed and resumed, the discovery service and its JSONL
+serve loop, and the co-workload path from the data pipeline through the
+float kernels — at full width, and prints where the time went.  Phases, one line
 each (plus detail):
 
 1. environment: the card's name and power limit, the kernels' build; for
@@ -109,7 +110,30 @@ each (plus detail):
    into its parts (the cached bitsets, the upload of the pairs, the two
    gathers, the wrapper's launch, the blocking read, other torch calls,
    numpy and Python), the kernel's device time, the rest (the host's
-   expansion) and peak device memory.
+   expansion) and peak device memory;
+11. durable runs and the service at full width.  (a) Phase 4's path with
+   the disk spill and ``checkpoint_every=64``, in this process: phase 4's
+   answer and counters, the checkpoints' count, bytes, capture and commit
+   time, and the wall beside phase 4's; then the same in subprocesses of
+   this script (``--durable-child '<json>'``), SIGKILLed (exit -9) at the
+   first host read past step 150 (T = 1) and inside the second commit
+   (T = 16), each resumed in a second subprocess: equal to phase 4's and
+   phase 8's results byte for byte with every counter, no ``.tmp``
+   checkpoint dir and no spill file left, ``masked_intersect`` launched
+   in the resumed run.  (b) One ``DiscoveryService(device="cuda")``: one
+   batch of phase 4's clique request, phase 9's iso request
+   (``use_pallas``), a repeat of the clique request (a cache hit with no
+   engine step), phase 3's pattern request (``use_pallas``, 4 launches)
+   and the clique request cut at 100 steps with checkpoints every 32,
+   then that request resumed with the full budget in a second call; each
+   answer equal to phases 4, 9 and 3, the resumed one with phase 4's
+   steps, and ``masked_intersect``'s launches read around each task's
+   steps; each request's latency, the service metrics, peak memory.
+   (c) ``python -m repro_torch.launch.serve`` with ``--device cuda`` and
+   ``--device cpu`` over one JSONL file of the demo graphs (clique and
+   its cache hit, weighted clique, iso and pattern with ``use_pallas``,
+   a label predicate, malformed lines, ``shards: 2``, a metrics
+   command): equal response lines, the wall-clock fields aside.
 
 The line before the last is the kernels' JSON record (each kernel's fp32
 numbers, and its bf16 numbers under ``bf16`` where phase 6 runs both,
@@ -118,8 +142,9 @@ from phases 2 and 4, its masked form's at the iso shape under ``masked``
 with phase 9's launches, at the pattern probe's shapes under
 ``pattern_probes`` (the row kernel's times, the tile's beside them), the
 cut-over sweep under ``cutover`` with the plan's ``rows_max_cols``, and
-the launches of each discovery path under ``launches_by_path``); the
-last line is
+the launches of each discovery path under ``launches_by_path``, phase
+11's durable and service paths among them), after a line with the whole
+run's wall; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result line.  Without a CUDA device, or without the repository's
 ``src/repro_torch`` beside this file, it fails at once.
@@ -768,7 +793,7 @@ def phase_main_path() -> int:
     if launches != res.steps:
         fail(f"masked_intersect launched {launches} times in "
              f"{res.steps} steps")
-    return launches, comp, res
+    return launches, comp, res, wall_s
 
 
 def device_busy(trace_path: str):
@@ -881,7 +906,8 @@ def span_ms(obs, steps: int) -> dict:
 def phase_macro_path(comp, want, idle_t1: float) -> dict:
     """Phase 4's path in macro-steps of ``MACRO_T``: the same answer and
     counters but ``host_syncs``; then a profiled rerun, the launches of
-    the scoring kernel counted in its trace.  Returns the launch counts."""
+    the scoring kernel counted in its trace.  Returns the launch count and
+    the run's result."""
     import torch
     from repro_torch.core.engine import Engine, EngineConfig
     from repro_torch.kernels import masked_intersect as mi
@@ -926,7 +952,7 @@ def phase_macro_path(comp, want, idle_t1: float) -> dict:
     if traced < res.steps:
         fail(f"the trace shows {traced} {MI_KERNEL} launches in "
              f"{res.steps} steps")
-    return launches
+    return launches, res
 
 
 def induced_4g(g, seed: int):
@@ -973,7 +999,9 @@ def phase_iso(env: dict) -> dict:
     """Labeled isomorphism at full width: the masked kernel's path and the
     ``batched`` path, each at T = 1 and ``MACRO_T``, byte for byte alike;
     the best results checked on the host; the masked kernel timed at this
-    path's call shape.  Returns the kernel path's launches and times."""
+    path's call shape.  Returns the kernel path's launches and times, and
+    (apart) its T = 1 result, the results as ``describe`` lists them and
+    the query's labels."""
     import numpy as np
     import torch
     from repro_torch.core.bitset import eye_table, to_tensor
@@ -1073,7 +1101,8 @@ def phase_iso(env: dict) -> dict:
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 library_ms=None,
                 launches_by_t={t: launches["kernel", t]
-                               for t in (1, MACRO_T)})
+                               for t in (1, MACRO_T)}), \
+        (first, [mapping for _, mapping in live], q_labels)
 
 
 # a probe's host time, split by what it calls (probe_split)
@@ -1740,7 +1769,465 @@ def phase_merge_topk() -> dict:
     return dict(peak_bytes=peak, ms=ms)
 
 
+# phase 11: durable runs and the service at full width
+DURABLE_EVERY = 64           # checkpoint_every of the kill-and-resume runs
+DURABLE_KILL_STEP = 150      # T = 1: SIGKILL at the first host read past it
+DURABLE_KILL_COMMIT = 2      # T = MACRO_T: SIGKILL inside the 2nd commit
+CHILD_TIMEOUT_S = 300
+# the service's truncated, checkpointed clique request (then resumed)
+SERVICE_TRUNCATED = dict(step_budget=100, checkpoint_every=32)
+# the serve CLI's request file (the demo graphs of repro_torch.launch.serve)
+CLI_REQUESTS = [
+    {"graph": "demo-social", "workload": "clique", "k": 3,
+     "request_id": "clique"},
+    {"graph": "demo-social", "workload": "clique", "k": 3,
+     "request_id": "clique again"},
+    {"graph": "demo-social", "workload": "weighted-clique", "k": 2,
+     "weights": [(v * 7) % 19 + 1 for v in range(200)],
+     "request_id": "weighted"},
+    {"graph": "demo-citeseer", "workload": "iso", "k": 3,
+     "q_edges": [[0, 1], [1, 2]], "q_labels": [0, 1, 0], "use_pallas": True,
+     "request_id": "iso"},
+    {"graph": "demo-citeseer", "workload": "pattern", "k": 2, "m_edges": 3,
+     "use_pallas": True, "request_id": "pattern"},
+    {"graph": "demo-attributed", "workload": "iso", "k": 3,
+     "q_edges": [[0, 1], [1, 2], [0, 2]], "q_labels": [1, 1, 1],
+     "label_predicate": {"vertex_any_of": [1, 2],
+                         "q_any_of": [[1, 2], [1, 2], [1, 2]],
+                         "edge_any_of": [0]}, "request_id": "predicate"},
+    "not json at all",
+    {"graph": "demo-social", "workload": "clique", "k": "three"},
+    {"graph": "demo-social", "workload": "clique", "k": 3, "shards": 2,
+     "request_id": "sharded"},
+    {"cmd": "metrics"},
+]
+
+
+def durable_engine(spec: dict, **cfg):
+    """Phase 4's engine on the card with the disk spill and checkpoints
+    every ``DURABLE_EVERY`` steps, at ``spec["T"]`` steps a host read (and
+    any other ``EngineConfig`` field in ``cfg``)."""
+    from repro_torch.core.clique import make_clique_computation
+    from repro_torch.core.engine import Engine, EngineConfig
+    from repro_torch.data.synthetic_graphs import planted_clique_graph
+    comp = make_clique_computation(planted_clique_graph(**FULL_GRAPH),
+                                   device="cuda")
+    return Engine(comp, EngineConfig(
+        **dict(FULL_ENGINE, spill="disk"), spill_dir=spec["spill_dir"],
+        steps_per_sync=spec["T"], checkpoint_every=DURABLE_EVERY,
+        checkpoint_dir=spec["ckpt_dir"], **cfg))
+
+
+def durable_child(spec: dict) -> int:
+    """``--durable-child '<json>'`` (phase 11a's subprocess): in mode
+    ``crash`` it arms a SIGKILL (at the first host read at or past
+    ``kill_at_step``, or inside commit number ``kill_in_commit``) and runs,
+    and must die there; in mode ``resume`` it continues from the newest
+    committed step, writes the result states to ``spec["result"]`` and
+    prints a ``DURABLE`` line with the keys, counters, the step resumed
+    from, the resumed run's wall and its ``masked_intersect`` launches."""
+    import os
+    import signal
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels import masked_intersect as mi
+
+    eng = durable_engine(spec)
+    if spec["mode"] == "crash":
+        if spec.get("kill_at_step"):
+            inner_step = eng.step
+
+            def step(st, max_inner=None):
+                out = inner_step(st, max_inner=max_inner)
+                if out.steps >= spec["kill_at_step"]:
+                    os.kill(os.getpid(), signal.SIGKILL)
+                return out
+            eng.step = step
+        else:
+            commits = [0]
+            inner_commit = CheckpointManager._commit
+
+            def commit(self, tmp, final):
+                commits[0] += 1
+                if commits[0] >= spec["kill_in_commit"]:
+                    os.kill(os.getpid(), signal.SIGKILL)
+                return inner_commit(self, tmp, final)
+            CheckpointManager._commit = commit
+        eng.run()
+        fail("the durable child ran to its end past its kill point")
+    resumed_from = CheckpointManager(spec["ckpt_dir"]).latest_step()
+    torch.cuda.synchronize()
+    mi.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(resume=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    np.save(spec["result"], res.result_states)
+    print("DURABLE " + json.dumps(dict(
+        keys=[int(x) for x in res.result_keys],
+        counters={c: getattr(res, c) for c in COUNTERS},
+        resumed_from=resumed_from, wall_s=wall_s, launches=mi.launches)),
+        flush=True)
+    return 0
+
+
+def run_children(specs: list) -> list:
+    """Run one ``--durable-child`` process a spec, all together; returns
+    ``(returncode, stdout, stderr)`` each.  Every child is killed by the
+    time this returns."""
+    import subprocess as sp
+    procs = [sp.Popen([sys.executable, str(Path(__file__).resolve()),
+                       "--durable-child", json.dumps(spec)],
+                      stdout=sp.PIPE, stderr=sp.PIPE, text=True)
+             for spec in specs]
+    try:
+        outs = [p.communicate(timeout=CHILD_TIMEOUT_S) for p in procs]
+        return [(p.returncode, *out) for p, out in zip(procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_durable(want, want_wall_s: float, want8) -> dict:
+    """Phase 11a: durable runs of phase 4's path.  First one checkpointed
+    run in this process (``checkpoint_every=64``, the disk spill): phase
+    4's answer and counters, and what the checkpoints cost (saves, bytes,
+    capture and commit time, the wall beside phase 4's).  Then kill and
+    resume in subprocesses of this script: at T = 1 SIGKILLed at the first
+    host read past step 150, at T = ``MACRO_T`` inside its second commit;
+    each resumed run must equal phase 4's (T = 1) or phase 8's result byte
+    for byte with every counter, leave no ``.tmp`` checkpoint dir and no
+    spill file, and launch ``masked_intersect``.  Returns the resumed
+    runs' launches."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels import masked_intersect as mi
+    from repro_torch.obs import Observability
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dict(T=1, ckpt_dir=f"{tmp}/ck", spill_dir=f"{tmp}/spill")
+        obs = Observability()
+        eng = durable_engine(spec, observe=True, observability=obs)
+        torch.cuda.synchronize()
+        mi.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        same_run("phase 11 checkpointed run against phase 4", res, want)
+        m = obs.metrics
+        cap = m.get("checkpoint_capture_seconds").snapshot()
+        com = m.get("checkpoint_commit_seconds").snapshot()
+        saves = int(m.get("checkpoint_saves_total").value)
+        save_s = sum(d for name, _, d, _ in obs.tracer.spans()
+                     if name == "checkpoint.save")
+        print(f"[11 durable] checkpointed run (T=1, checkpoint_every="
+              f"{DURABLE_EVERY}, disk spill): equal to phase 4 byte for byte "
+              f"with every counter; wall={wall_s:.3f}s (phase 4: "
+              f"{want_wall_s:.3f}s, host spill, no checkpoint) saves={saves} "
+              f"bytes={int(m.get('checkpoint_bytes_written_total').value)} "
+              f"save_ms={1e3 * save_s:.1f} (on the engine's thread: the "
+              f"host copy and the capture, {1e3 * save_s / saves:.1f} a "
+              f"save) capture_ms={1e3 * cap['sum']:.1f} "
+              f"commit_ms={1e3 * com['sum']:.1f} ({com['count']} commits, "
+              f"on the writer thread) masked_intersect_launches="
+              f"{mi.launches}")
+        if mi.launches != res.steps:
+            fail(f"the checkpointed run launched masked_intersect "
+                 f"{mi.launches} times in {res.steps} steps")
+        del eng
+        shutil.rmtree(tmp + "/ck")    # its steps and linked runs: ~1 GB
+
+        cases = {1: (want, dict(kill_at_step=DURABLE_KILL_STEP)),
+                 MACRO_T: (want8, dict(kill_in_commit=DURABLE_KILL_COMMIT))}
+        specs = {t: dict(T=t, ckpt_dir=f"{tmp}/ck{t}",
+                         spill_dir=f"{tmp}/spill{t}",
+                         result=f"{tmp}/states{t}.npy") for t in cases}
+        t0 = time.perf_counter()
+        crashed = run_children([dict(specs[t], mode="crash", **kill)
+                                for t, (_, kill) in cases.items()])
+        crash_s = time.perf_counter() - t0
+        for t, (rc, _, err) in zip(cases, crashed):
+            if rc != -9:
+                fail(f"durable T={t}: the crash child exited {rc}, not by "
+                     f"SIGKILL: {err[-2000:]}")
+        for t in cases:       # the resume runs on fresh spill dirs
+            specs[t]["spill_dir"] += "-resume"
+        t0 = time.perf_counter()
+        resumed = run_children([dict(specs[t], mode="resume")
+                                for t in cases])
+        resume_s = time.perf_counter() - t0
+        for t, (rc, out, err) in zip(cases, resumed):
+            ref = cases[t][0]
+            if rc != 0:
+                fail(f"durable T={t}: the resume child exited {rc}: "
+                     f"{err[-2000:]}")
+            line = [x for x in out.splitlines() if x.startswith("DURABLE ")]
+            if not line:
+                fail(f"durable T={t}: the resume child printed no result")
+            got = json.loads(line[0][len("DURABLE "):])
+            states = np.load(specs[t]["result"])
+            if got["keys"] != [int(x) for x in ref.result_keys] or \
+                    states.tobytes() != ref.result_states.tobytes() or \
+                    got["counters"] != {c: getattr(ref, c) for c in COUNTERS}:
+                fail(f"durable T={t}: the resumed run {got} differs from "
+                     f"phase {4 if t == 1 else 8}'s")
+            tmps = [d for d in os.listdir(specs[t]["ckpt_dir"])
+                    if d.endswith(".tmp")]
+            spill = [f for _, _, fs in os.walk(specs[t]["spill_dir"])
+                     for f in fs]
+            if tmps or spill:
+                fail(f"durable T={t}: left {tmps} {spill[:4]}")
+            ran = ref.steps - (got["resumed_from"] or 0)
+            if got["resumed_from"] is None or got["launches"] < ran or \
+                    (t == 1 and got["launches"] != ran):
+                fail(f"durable T={t}: resumed from "
+                     f"{got['resumed_from']}, {got['launches']} "
+                     f"masked_intersect launches for {ran} steps")
+            launches[f"durable clique T={t}"] = got["launches"]
+            print(f"[11 durable] T={t}: killed (-9) "
+                  + (f"at step >= {DURABLE_KILL_STEP}" if t == 1 else
+                     f"inside commit {DURABLE_KILL_COMMIT}")
+                  + f", resumed from step {got['resumed_from']}: equal to "
+                  f"phase {4 if t == 1 else 8} byte for byte with every "
+                  f"counter (host_syncs {got['counters']['host_syncs']}); "
+                  f"resumed run wall={got['wall_s']:.3f}s, "
+                  f"masked_intersect_launches={got['launches']} for {ran} "
+                  f"steps; no .tmp dir, spill dir empty")
+        print(f"[11 durable] children (two at a time, each its own CUDA "
+              f"context and graph): crash {crash_s:.1f}s, resume "
+              f"{resume_s:.1f}s")
+    return launches
+
+def phase_service(want, described, iso_run) -> dict:
+    """Phase 11b: one ``DiscoveryService(device="cuda")`` over phase 4's
+    graph, phase 9's and phase 3's small pattern graph.  One batch: phase
+    4's clique request, phase 9's iso request on the kernel path, a repeat
+    of the clique request (a cache hit: no engine step), phase 3's pattern
+    request (``use_pallas``) and the clique request cut to 100 steps with
+    checkpoints every 32; then, in a second call, that request resumed
+    with the full budget.  Each answer must equal phases 4, 9 and 3 (keys,
+    results as the response lists them, every counter); the resumed one
+    finishes with phase 4's steps.  ``masked_intersect`` launches are read
+    around each task's steps.  Returns the launches by path."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.synthetic_graphs import (labeled_graph,
+                                                   planted_clique_graph)
+    from repro_torch.kernels import masked_intersect as mi
+    from repro_torch.obs import Observability
+    from repro_torch.service import (DiscoveryRequest, DiscoveryService,
+                                     GraphRegistry)
+    from repro_torch.service import scheduler
+
+    want9, described9, q_labels = iso_run
+    t0 = time.perf_counter()
+    registry = GraphRegistry()
+    registry.register("clique", planted_clique_graph(**FULL_GRAPH))
+    registry.register("iso", labeled_graph(**ISO_GRAPH))
+    registry.register("pattern", labeled_graph(**PATTERN_SMALL_GRAPH))
+    graphs_s = time.perf_counter() - t0
+    obs = Observability()
+    svc = DiscoveryService(registry, observability=obs, device="cuda")
+    clique = dict(graph="clique", workload="clique", k=FULL_ENGINE["k"],
+                  batch=FULL_ENGINE["batch"],
+                  pool_capacity=FULL_ENGINE["pool_capacity"])
+    by_request, inner = {}, {}
+
+    def counted(cls):
+        def step(task):
+            before = mi.launches
+            inner[cls](task)
+            rid = task.request.request_id
+            by_request[rid] = by_request.get(rid, 0) + mi.launches - before
+        return step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        truncated = dict(clique, **SERVICE_TRUNCATED, checkpoint_dir=tmp,
+                         use_cache=False)
+        batch = [
+            DiscoveryRequest(**clique, request_id="clique"),
+            DiscoveryRequest(
+                graph="iso", workload="iso", k=ISO_ENGINE["k"],
+                batch=ISO_ENGINE["batch"],
+                pool_capacity=ISO_ENGINE["pool_capacity"],
+                q_edges=tuple(ISO_4G), q_labels=tuple(q_labels),
+                max_hops=ISO_HOPS, use_pallas=True, request_id="iso"),
+            DiscoveryRequest(**clique, request_id="clique repeat"),
+            DiscoveryRequest(graph="pattern", workload="pattern",
+                             **PATTERN_SMALL, use_pallas=True,
+                             request_id="pattern"),
+            DiscoveryRequest(**truncated, request_id="truncated")]
+        resume = DiscoveryRequest(**dict(truncated, step_budget=100_000),
+                                  resume=True, request_id="resumed")
+        for cls in (scheduler.EngineQueryTask, scheduler.PatternQueryTask):
+            inner[cls] = cls.step
+            cls.step = counted(cls)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mi.reset_launches()
+            t0 = time.perf_counter()
+            first = svc.serve(batch)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            steps_first = svc.engine_steps_total
+            committed = CheckpointManager(tmp).latest_step()
+            t0 = time.perf_counter()
+            second = svc.serve([resume])
+            torch.cuda.synchronize()
+            second_s = time.perf_counter() - t0
+        finally:
+            for cls, step in inner.items():
+                cls.step = step
+        peak = torch.cuda.max_memory_allocated()
+
+    resp = {r.request_id: r for r in first + second}
+    for rid, r in resp.items():
+        if r.status != "ok":
+            fail(f"service {rid}: {r.error}")
+        print(f"[11 service] {rid}: cached={r.cached} "
+              f"terminated={r.terminated} latency_s={r.latency_s:.3f} "
+              f"keys={r.result_keys} steps={r.stats['steps']} "
+              f"masked_intersect_launches={by_request.get(rid, 0)}")
+
+    def engine_answer(r, ref, results, what):
+        got = {c: r.stats[c] for c in COUNTERS}
+        if r.result_keys != [int(x) for x in ref.result_keys] or \
+                r.results != results or \
+                got != {c: getattr(ref, c) for c in COUNTERS} or \
+                r.stats["rebalanced"] != 0:
+            fail(f"service {r.request_id}: {r.result_keys} {got}, {what} "
+                 f"{[int(x) for x in ref.result_keys]}")
+
+    engine_answer(resp["clique"], want, described, "phase 4")
+    engine_answer(resp["clique repeat"], want, described, "phase 4")
+    engine_answer(resp["iso"], want9, described9, "phase 9")
+    engine_answer(resp["resumed"], want, described, "phase 4")
+    pat = resp["pattern"]
+    if pat.result_keys != [sup for sup, _ in PATTERN_SMALL_WANT["patterns"]] \
+            or pat.results != [[list(e) for e in code] for _, code in
+                               PATTERN_SMALL_WANT["patterns"]] or \
+            (pat.stats["candidates"], pat.stats["expanded"],
+             pat.stats["pruned"]) != (
+                PATTERN_SMALL_WANT["candidates"],
+                PATTERN_SMALL_WANT["groups_expanded"],
+                PATTERN_SMALL_WANT["groups_pruned"]):
+        fail(f"service pattern: {pat.result_keys} {pat.stats}, reference "
+             f"{PATTERN_SMALL_WANT}")
+    cut = SERVICE_TRUNCATED["step_budget"]
+    checks = [
+        (not resp["clique"].cached and resp["clique repeat"].cached,
+         "the repeat is not a cache hit"),
+        (by_request.get("clique repeat", 0) == 0, "the repeat ran steps"),
+        (steps_first == want.steps + want9.steps + cut,
+         f"engine_steps_total {steps_first} after the batch"),
+        (resp["truncated"].terminated == "step_budget"
+         and resp["truncated"].stats["steps"] == cut == committed,
+         f"truncated run: {resp['truncated'].stats['steps']} steps, "
+         f"newest checkpoint {committed}"),
+        (svc.engine_steps_total - steps_first == want.steps - cut,
+         "the resumed request counted its steps before the cut again"),
+        (resp["resumed"].terminated == "complete", "resumed: not complete"),
+        (by_request["clique"] == want.steps
+         and by_request["truncated"] == cut
+         and by_request["resumed"] == want.steps - cut
+         and by_request["iso"] >= want9.steps
+         and by_request["pattern"] == PATTERN_SMALL_PROBES,
+         f"masked_intersect launches by request {by_request}")]
+    for ok, what in checks:
+        if not ok:
+            fail(f"service: {what}")
+    metrics = obs.snapshot()["metrics"]
+    print(f"[11 service] answers equal phases 4, 9 and 3 (keys, results, "
+          f"every counter); the repeat a cache hit with no step; the cut "
+          f"request resumed from step {committed} to {want.steps}; graphs="
+          f"{graphs_s:.2f}s batch={first_s:.3f}s resume={second_s:.3f}s "
+          f"engine_steps_total={svc.engine_steps_total} "
+          f"peak_mem={peak / 2**30:.2f}GiB")
+    print("[11 service] metrics: " + json.dumps(
+        {name: (m["value"] if "value" in m else
+                {"count": m["count"], "sum": round(m["sum"], 6)})
+         for name, m in sorted(metrics.items())
+         if name.startswith("service_")}))
+    return {"service clique": by_request["clique"],
+            "service iso": by_request["iso"],
+            "service pattern": by_request["pattern"]}
+
+
+def cli_response(line: str) -> dict:
+    """A response line without the fields that read the wall clock."""
+    d = json.loads(line)
+    d.pop("latency_s", None)
+    if isinstance(d.get("stats"), dict):
+        d["stats"].pop("straggler_steps", None)
+    return d
+
+
+def phase_serve_cli() -> None:
+    """Phase 11c: ``python -m repro_torch.launch.serve --device cuda`` and
+    ``--device cpu`` over ``CLI_REQUESTS`` (the demo graphs: clique and its
+    cache hit, weighted clique, iso and pattern with ``use_pallas``, a
+    label predicate, malformed lines, ``shards: 2``, a metrics command),
+    both processes at once; their response lines must be equal but for
+    the wall-clock fields."""
+    import os
+    import subprocess as sp
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/requests.jsonl"
+        with open(path, "w") as f:
+            for req in CLI_REQUESTS:
+                f.write((req if isinstance(req, str) else json.dumps(req))
+                        + "\n")
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        t0 = time.perf_counter()
+        procs = {dev: sp.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+             dev, "--requests", path], stdout=sp.PIPE, stderr=sp.PIPE,
+            text=True, env=env) for dev in ("cuda", "cpu")}
+        try:
+            outs = {dev: p.communicate(timeout=CHILD_TIMEOUT_S)
+                    for dev, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+    for dev, p in procs.items():
+        if p.returncode != 0:
+            fail(f"serve --device {dev} exited {p.returncode}: "
+                 f"{outs[dev][1][-2000:]}")
+    lines = {dev: [cli_response(x) for x in out.splitlines()]
+             for dev, (out, _) in outs.items()}
+    if len(lines["cuda"]) != len(CLI_REQUESTS) or \
+            lines["cuda"] != lines["cpu"]:
+        fail(f"serve: the cuda lines differ from the cpu lines:\n"
+             f"{lines['cuda']}\n{lines['cpu']}")
+    by_id = {d.get("request_id"): d for d in lines["cuda"]}
+    if "item 12" not in (by_id["sharded"].get("error") or "") or \
+            not by_id["clique again"]["cached"] or \
+            sum(d.get("status") == "error" for d in lines["cuda"]) != 3:
+        fail(f"serve: {lines['cuda']}")
+    summary = {dev: err.strip().splitlines()[-1] for dev, (_, err)
+               in outs.items()}
+    print(f"[11 serve] {len(CLI_REQUESTS)} request lines through "
+          f"--device cuda and --device cpu (both at once, {wall_s:.1f}s): "
+          f"equal response lines (latency and straggler count aside); "
+          f"shards: 2 answered '{by_id['sharded']['error']}'; cuda "
+          f"{summary['cuda']}")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs an NVIDIA card")
@@ -1751,18 +2238,27 @@ def main() -> int:
 
     from repro_torch.data.synthetic_graphs import planted_clique_graph
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--durable-child":
+        return durable_child(json.loads(sys.argv[2]))
     env = phase_environment()
     kernel = phase_kernels(env)
     ragged = phase_coworkload_kernels()
     phase_quickstart_parity()
-    launches, comp, res = phase_main_path()
+    launches, comp, res, wall4_s = phase_main_path()
     idle_t1 = phase_profile(comp, res)
     cowork = phase_coworkload(planted_clique_graph(**FULL_GRAPH), ragged)
     phase_merge_topk()
-    macro_launches = phase_macro_path(comp, res, idle_t1)
-    del comp, res
-    iso = phase_iso(env)
+    macro_launches, res8 = phase_macro_path(comp, res, idle_t1)
+    described = [comp.describe(row) for key, row in
+                 zip(res.result_keys, res.result_states) if key > -2 ** 31]
+    del comp
+    iso, iso_run = phase_iso(env)
     pattern_launches = phase_patterns()
+    t11 = time.perf_counter()
+    durable_launches = phase_durable(res, wall4_s, res8)
+    service_launches = phase_service(res, described, iso_run)
+    phase_serve_cli()
+    print(f"[11] phase 11 wall={time.perf_counter() - t11:.1f}s")
     kernels = [dict(
         name="masked_intersect", route="cuda",
         source="src/repro_torch/kernels/csrc/masked_intersect.cu",
@@ -1777,7 +2273,7 @@ def main() -> int:
         launches_by_path={
             "clique T=1": launches, f"clique T={MACRO_T}": macro_launches,
             **{f"iso T={t}": n for t, n in iso["launches_by_t"].items()},
-            **pattern_launches})]
+            **pattern_launches, **durable_launches, **service_launches})]
     for name, line in (("segment_matmul", 59), ("embedding_bag", 46),
                        ("flash_attention", 84)):
         # the fp32 record first; a bf16 one beside it where both run
@@ -1789,6 +2285,8 @@ def main() -> int:
         if "bf16" in by_dtype:
             entry["bf16"] = by_dtype["bf16"]
         kernels.append(entry)
+    print(f"[smoke] wall={time.perf_counter() - t_start:.1f}s (all phases, "
+          f"the kernels' build included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": env["name"],

@@ -2,9 +2,10 @@
 
 The data takes the place of weights here: a graph built by ``repro`` comes
 across through its numpy fields (:func:`graph_from_arrays`), a reference
-:class:`~repro.core.engine.EngineState` through its arrays and scalar
-counters (:func:`state_from_arrays`), so that a run started by the
-reference can be continued by the port, and any reference array (a table,
+:class:`~repro.core.engine.EngineState` with an empty spill queue through
+its arrays and scalar counters (:func:`state_from_arrays`), so that a run
+started by the reference can be continued by the port (a state with spill
+comes across as a checkpoint directory, :meth:`Engine.resume`), and any reference array (a table,
 q/k/v) through :func:`tensor_from_array`.  All take plain numpy and Python
 values: nothing of ``repro`` is imported.
 """
@@ -15,13 +16,12 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from .core.engine import Engine, EngineState
+from .core.engine import _CKPT_SCALARS, Engine, EngineState
 from .core.graph import GraphStore
 from .core.vpq import VirtualPriorityQueue
 
-#: reference EngineState scalars carried verbatim
-STATE_SCALARS = ("steps", "candidates", "expanded", "pruned", "refilled",
-                 "syncs", "host_syncs", "threshold", "pool_occupancy", "done")
+#: reference EngineState scalars carried verbatim (the checkpoint's)
+STATE_SCALARS = _CKPT_SCALARS
 
 #: reference EngineState arrays (int32)
 STATE_ARRAYS = ("pool_states", "pool_prio", "pool_ub", "result_states",
@@ -63,15 +63,18 @@ def state_from_arrays(engine: Engine, arrays: Mapping[str, np.ndarray],
     (:data:`STATE_SCALARS`, plus ``vpq_len``, ``spilled`` and
     ``late_pruned`` from its queue).
 
-    The spill queue does not come across, so a reference state whose queue
-    still holds entries (``vpq_len > 0``) is rejected; the queue's running
+    The spill queue does not come across here, so a reference state whose
+    queue still holds entries (``vpq_len > 0``) is rejected: such a state
+    comes across as a checkpoint that the reference engine saved, which
+    :meth:`Engine.resume` restores with its queue.  The queue's running
     totals carry over so the finished result counts what the reference
     spilled before the hand-over.
     """
     if int(counters["vpq_len"]) != 0:
         raise ValueError(
             f"the reference state's spill queue holds {counters['vpq_len']} "
-            f"entries; only a state with an empty queue can be carried")
+            f"entries; only a state with an empty queue can be carried "
+            f"here: resume a reference checkpoint with Engine.resume")
     shapes = {"pool_states": (engine.C, engine.S), "pool_prio": (engine.C,),
               "pool_ub": (engine.C,), "result_states": (engine.k, engine.S),
               "result_keys": (engine.k,)}

@@ -35,10 +35,22 @@ result set kept).  Answers, counters and ``host_syncs`` are the
 reference's at the same ``T``; the no-op steps cost device time, which is
 the price of the single read.  Each step's overflow block lands at the
 valid-entry watermark ``w`` of an accumulator allocated once per engine.
+
+Durable runs (the reference's DESIGN.md §15): with ``checkpoint_every``
+and ``checkpoint_dir`` set, :meth:`Engine.run` saves the whole state —
+pool, result set, counters, spill queue — through
+:class:`~repro_torch.checkpoint.manager.CheckpointManager` at the first
+host read every ``checkpoint_every`` steps, and :meth:`Engine.resume`
+rebuilds it; the layout, leaf names and manifest are the reference's, so
+either package resumes the other's checkpoint.  Under macro-steps the save
+follows the macro-step's one host read, as in the reference; the no-op
+steps a macro-step launches after its loop's exit leave the saved state
+as it was.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -47,7 +59,14 @@ import torch
 
 from .api import NEG, SubgraphComputation, resolve_device
 from .vpq import VirtualPriorityQueue
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.obs import NOOP, Observability
+
+#: EngineState counters checkpointed verbatim (the reference's tuple;
+#: ``repro_torch.carry.STATE_SCALARS`` names this one)
+_CKPT_SCALARS = ("steps", "candidates", "expanded", "pruned", "refilled",
+                 "syncs", "host_syncs", "threshold", "pool_occupancy",
+                 "done")
 
 _STAT_NAMES = ("expanded", "created", "pruned", "pool_occupancy",
                "threshold", "overflow")
@@ -74,7 +93,7 @@ class EngineConfig:
     overflow_accum: Optional[int] = None   # macro-step accumulator rows
     sync_every: int = 1           # stale bound exchange: item 12
     record_bound_trace: bool = False       # sharded test hook: item 12
-    checkpoint_every: int = 0     # durable runs: ROADMAP Queue 1, item 9
+    checkpoint_every: int = 0     # durable runs: Engine.run saves every N
     checkpoint_dir: Optional[str] = None
     use_pallas: bool = False      # the kernel follows the device (item 3)
     interpret: Optional[bool] = None
@@ -187,8 +206,6 @@ class Engine:
              or config.record_bound_trace, "the sharded engine (shards, "
              "sync_every, record_bound_trace) is not ported yet: ROADMAP "
              "Queue 1, item 12"),
-            (config.checkpoint_every > 0 or config.checkpoint_dir is not None,
-             "checkpointing is not ported yet: ROADMAP Queue 1, item 9"),
             (config.use_pallas or config.interpret is not None,
              "use_pallas/interpret have no meaning here: the kernel path "
              "follows the tensors' device (ROADMAP Queue 1, item 3)"),
@@ -584,14 +601,86 @@ class Engine:
                 late_pruned=st.vpq.total_late_pruned,
                 syncs=st.syncs, host_syncs=st.host_syncs)
 
+    # ------------------------------------------------------- checkpointing
+    def _ckpt_arrays(self, st: EngineState) -> dict:
+        return dict(pool_states=st.pool_states, pool_prio=st.pool_prio,
+                    pool_ub=st.pool_ub, result_states=st.result_states,
+                    result_keys=st.result_keys)
+
+    def save_checkpoint(self, mgr: CheckpointManager, st: EngineState,
+                        blocking: bool = False) -> None:
+        """Persist ``st`` through ``mgr``'s atomic-commit protocol.  The
+        arrays are copied to the host and the VPQ captured (array
+        snapshots, hardlinks of disk run files) before this returns, so
+        the engine may step on — and delete exhausted spill runs — while
+        the writer thread flushes.  Saving never changes the run."""
+        scalars = {name: getattr(st, name) for name in _CKPT_SCALARS}
+
+        def capture(tmp_dir: str) -> dict:
+            vpq = st.vpq.snapshot(os.path.join(tmp_dir, "vpq"))
+            return {"kind": "engine", "scalars": scalars, "vpq": vpq}
+
+        mgr.save(st.steps, self._ckpt_arrays(st), blocking=blocking,
+                 capture=capture)
+
+    def resume(self, source, step: Optional[int] = None) -> EngineState:
+        """Rebuild an :class:`EngineState` on this engine's device from a
+        committed checkpoint (a directory or a :class:`CheckpointManager`;
+        the newest step unless ``step`` is given), written by this package
+        or by the reference.  Spill files the checkpoint references are
+        linked into the live spill dir (``cfg.spill_dir`` or a fresh temp
+        dir), so the checkpoint stays restorable any number of times."""
+        mgr = (source if isinstance(source, CheckpointManager)
+               else CheckpointManager(source, obs=self.obs))
+        manifest = mgr.read_manifest(step)
+        step = manifest["step"]
+        extra = manifest["extra"]
+        if extra is None or extra.get("kind") != "engine":
+            raise ValueError(
+                f"step {step} in {mgr.dir} is not an engine checkpoint")
+        like = {leaf["name"]: np.zeros(
+            [int(s) for s in leaf["shape"]], np.dtype(leaf["dtype"]))
+            for leaf in manifest["leaves"]}
+        tree = mgr.restore(like, step=step)
+        vpq = VirtualPriorityQueue.restore(
+            extra["vpq"], os.path.join(mgr.path(step), "vpq"),
+            spill_dir=self.cfg.spill_dir, obs=self.obs)
+        return EngineState(
+            vpq=vpq, **{name: self._to_device(a) for name, a in tree.items()},
+            **extra["scalars"])
+
     # ------------------------------------------------------------------- run
-    def run(self, progress_every: int = 0) -> EngineResult:
-        """Run to completion (or ``max_steps``)."""
-        st = self.start()
+    def run(self, progress_every: int = 0,
+            resume: bool = False) -> EngineResult:
+        """Run to completion (or ``max_steps``).  With
+        ``cfg.checkpoint_every > 0`` and a ``cfg.checkpoint_dir``, the
+        state is saved at the first host read every ``checkpoint_every``
+        steps after the last save, and once more at the end;
+        ``resume=True`` continues from the newest committed step there (a
+        fresh start when none is committed)."""
+        mgr = None
+        if self.cfg.checkpoint_dir and (self.cfg.checkpoint_every > 0
+                                        or resume):
+            mgr = CheckpointManager(self.cfg.checkpoint_dir, obs=self.obs)
+        st = None
+        if resume and mgr is not None and mgr.latest_step() is not None:
+            st = self.resume(mgr)
+        if st is None:
+            st = self.start()
+        every = self.cfg.checkpoint_every
+        last_ckpt = st.steps
         while not st.done and st.steps < self.cfg.max_steps:
             self.step(st, max_inner=self.cfg.max_steps - st.steps)
             if progress_every and st.steps % progress_every == 0:
                 print(f"[{self.comp.name}] step={st.steps} "
                       f"occ={st.pool_occupancy} vpq={len(st.vpq)} "
                       f"thr={st.threshold} cand={st.candidates}")
+            if mgr is not None and every > 0 and \
+                    st.steps - last_ckpt >= every:
+                self.save_checkpoint(mgr, st)
+                last_ckpt = st.steps
+        if mgr is not None and every > 0 and st.steps > last_ckpt:
+            self.save_checkpoint(mgr, st)   # the final state restores too
+        if mgr is not None:
+            mgr.wait()
         return self.finalize(st)

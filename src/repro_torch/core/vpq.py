@@ -1,8 +1,10 @@
 """Virtual priority queue — the paper's on-disk subgraph management (§5).
 
 A numpy copy of ``repro.core.vpq`` with the same merge order, so spill and
-refill are byte-identical to the reference.  The checkpoint snapshot and
-restore of the reference queue are not here yet (ROADMAP Queue 1, item 9).
+refill are byte-identical to the reference, and with its checkpoint
+:meth:`~VirtualPriorityQueue.snapshot` / :meth:`~VirtualPriorityQueue.restore`
+under the same manifest keys and file names, so a queue that the reference
+checkpointed restores here and the other way round.
 
 The device pool (HBM) holds the high-priority states; when it overflows,
 the lowest-priority entries exit the engine step as a block and are
@@ -48,6 +50,21 @@ from repro_torch.obs import NOOP
 NEG = np.iinfo(np.int32).min
 
 
+def _link_or_copy(src: str, dst: str) -> None:
+    """Reference ``src`` at ``dst`` without copying data: a hardlink where
+    the filesystem allows it (same device — the normal case for a
+    checkpoint dir next to the spill dir), byte copy as the fallback.
+    Spill-run ``.npy`` files are write-once immutable, so a link is as
+    good as a copy — and deleting either name leaves the other readable.
+    """
+    if os.path.exists(dst):
+        os.remove(dst)
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copy2(src, dst)
+
+
 class _Run:
     """One sorted spill run with buffered sequential reads."""
 
@@ -89,6 +106,18 @@ class _Run:
             self._obs.counter("vpq_disk_read_seconds_total").inc(
                 time.perf_counter() - t0)
 
+    def head_prio(self) -> int:
+        return int(self._bprio[self.cursor - self._buf_start])
+
+    def pop(self):
+        i = self.cursor - self._buf_start
+        out = (self._bstates[i], int(self._bprio[i]), int(self._bub[i]))
+        self.cursor += 1
+        if self.cursor < self.n and self.cursor - self._buf_start >= \
+                len(self._bprio):
+            self._fill_buffer()
+        return out
+
     # ------------------------------------------------- blockwise merge API
     def buffered(self):
         """The not-yet-consumed slice of the current buffer block
@@ -126,6 +155,33 @@ class _Run:
                     os.remove(p)
                 except OSError:
                     pass
+
+    @classmethod
+    def _restore(cls, n: int, cursor: int, buffer_size: int,
+                 arrays=None, paths=None, obs=NOOP) -> "_Run":
+        """Rebuild a run from checkpointed data: host arrays (already
+        sliced to the unconsumed remainder, cursor 0) or disk file paths
+        (full run files, cursor preserved).  Byte parity needs only the
+        unconsumed suffix in original order — consumed entries are never
+        compared again, and the blockwise merge's emitted order and
+        consumption stop point are invariant to buffer alignment."""
+        run = cls.__new__(cls)
+        run.n = n
+        run.cursor = cursor
+        run.buffer_size = buffer_size
+        run._buf_start = 0
+        run._obs = obs
+        if paths is not None:
+            run._paths = dict(paths)
+            run._states = np.load(paths["states"], mmap_mode="r")
+            run._prio = np.load(paths["prio"], mmap_mode="r")
+            run._ub = np.load(paths["ub"], mmap_mode="r")
+        else:
+            run._paths = None
+            run._states, run._prio, run._ub = arrays
+        run._fill_buffer()
+        return run
+
 
 class VirtualPriorityQueue:
     def __init__(self, state_width: int, backend: str = "host",
@@ -301,3 +357,104 @@ class VirtualPriorityQueue:
         self.runs = []
         if self._own_dir and self.spill_dir and os.path.isdir(self.spill_dir):
             shutil.rmtree(self.spill_dir, ignore_errors=True)
+
+    # ------------------------------------------------------ snapshot/restore
+    def snapshot(self, out_dir: str) -> dict:
+        """Checkpoint the queue into ``out_dir``; returns the JSON manifest
+        :meth:`restore` rebuilds from (DESIGN.md §15).
+
+        Disk runs are *referenced, not copied*: the write-once ``.npy`` run
+        files are hardlinked into ``out_dir``, so the snapshot costs no
+        data movement and survives the live engine deleting its own link
+        when the run exhausts.  Host runs save only the unconsumed
+        ``[cursor:]`` suffix.  Pending (unflushed) fragments are saved as
+        one concatenated triple — ``_flush_pending`` concatenates before
+        sorting anyway, so the restored queue flushes to an identical run.
+        Crucially the snapshot never flushes pending itself: forcing a run
+        boundary here would change merge tie order versus the
+        uninterrupted trajectory.
+        """
+        os.makedirs(out_dir, exist_ok=True)
+        runs = []
+        for j, r in enumerate(self.runs):
+            if r._paths is not None:          # disk: link full files
+                files = {}
+                for name, src in r._paths.items():
+                    fname = f"run{j}_{name}.npy"
+                    _link_or_copy(src, os.path.join(out_dir, fname))
+                    files[name] = fname
+                runs.append({"kind": "disk", "n": int(r.n),
+                             "cursor": int(r.cursor), "files": files})
+            else:                             # host: save the remainder
+                files = {}
+                for name, arr in (("states", r._states), ("prio", r._prio),
+                                  ("ub", r._ub)):
+                    fname = f"run{j}_{name}.npy"
+                    np.save(os.path.join(out_dir, fname),
+                            np.asarray(arr[r.cursor:]))
+                    files[name] = fname
+                runs.append({"kind": "host", "n": int(r.n - r.cursor),
+                             "cursor": 0, "files": files})
+        pending = None
+        if self._pending:
+            pending = {}
+            for i, name in enumerate(("states", "prio", "ub")):
+                fname = f"pending_{name}.npy"
+                np.save(os.path.join(out_dir, fname),
+                        np.concatenate([p[i] for p in self._pending]))
+                pending[name] = fname
+        return {"state_width": self.state_width, "backend": self.backend,
+                "buffer_size": self.buffer_size,
+                "run_flush_size": self.run_flush_size,
+                "run_id": self._run_id,
+                "total_spilled": self.total_spilled,
+                "total_late_pruned": self.total_late_pruned,
+                "runs": runs, "pending": pending}
+
+    @classmethod
+    def restore(cls, manifest: dict, src_dir: str,
+                spill_dir: Optional[str] = None,
+                obs=None) -> "VirtualPriorityQueue":
+        """Rebuild a queue from :meth:`snapshot` output.
+
+        Disk runs are re-linked from the checkpoint into the *live* spill
+        dir under fresh run ids and re-opened memory-mapped read-only; the
+        restored queue owns (and deletes, on exhaust/close) its live
+        links, while the checkpoint's own files stay intact — so the same
+        step restores any number of times.
+        """
+        vpq = cls(state_width=int(manifest["state_width"]),
+                  backend=manifest["backend"], spill_dir=spill_dir,
+                  buffer_size=int(manifest["buffer_size"]),
+                  run_flush_size=int(manifest["run_flush_size"]),
+                  obs=obs)
+        vpq.total_spilled = int(manifest["total_spilled"])
+        vpq.total_late_pruned = int(manifest["total_late_pruned"])
+        vpq._run_id = int(manifest["run_id"])
+        for entry in manifest["runs"]:
+            if entry["kind"] == "disk":
+                rid = vpq._run_id
+                vpq._run_id += 1
+                paths = {}
+                for name, fname in entry["files"].items():
+                    dst = os.path.join(vpq.spill_dir, f"run{rid}_{name}.npy")
+                    _link_or_copy(os.path.join(src_dir, fname), dst)
+                    paths[name] = dst
+                vpq.runs.append(_Run._restore(
+                    int(entry["n"]), int(entry["cursor"]),
+                    vpq.buffer_size, paths=paths, obs=vpq.obs))
+            else:
+                arrays = tuple(
+                    np.load(os.path.join(src_dir, entry["files"][name]))
+                    for name in ("states", "prio", "ub"))
+                vpq.runs.append(_Run._restore(
+                    int(entry["n"]), int(entry["cursor"]),
+                    vpq.buffer_size, arrays=arrays, obs=vpq.obs))
+        if manifest.get("pending"):
+            arrays = tuple(
+                np.load(os.path.join(src_dir, manifest["pending"][name]))
+                for name in ("states", "prio", "ub"))
+            if len(arrays[1]):
+                vpq._pending.append(arrays)
+                vpq._pending_n = len(arrays[1])
+        return vpq

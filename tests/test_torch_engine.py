@@ -235,7 +235,7 @@ def test_entry_point_raises_without_cuda_device():
 
 @pytest.mark.parametrize("field,value,item", [
     ("record_bound_trace", True, "item 12"), ("shards", 2, "item 12"),
-    ("sync_every", 2, "item 12"), ("checkpoint_every", 8, "item 9"),
+    ("sync_every", 2, "item 12"), ("interpret", True, "item 3"),
     ("use_pallas", True, "item 3")])
 def test_unsupported_config_names_roadmap_item(field, value, item):
     comp = make_clique_computation(gen.densifying_graph(40, 60, 0),

@@ -1,4 +1,5 @@
-"""The port stands alone: importing every module of repro_torch loads
+"""The port stands alone: importing every module of repro_torch (the
+checkpoint, runtime, service and launch subpackages among them) loads
 neither jax nor anything of repro, and no source of the port (nor
 chip_smoke.py) names repro in an import."""
 import os
@@ -23,8 +24,13 @@ def test_every_module_imports_without_jax_or_repro():
     mods = list(_modules())
     assert {"repro_torch.core.engine", "repro_torch.core.patterns",
             "repro_torch.core.aggregate", "repro_torch.core.exhaustive",
-            "repro_torch.core.weighted_clique"} <= set(mods)
-    assert len(mods) >= 24
+            "repro_torch.core.weighted_clique",
+            "repro_torch.checkpoint.manager", "repro_torch.runtime",
+            "repro_torch.runtime.fault_tolerance", "repro_torch.service",
+            "repro_torch.service.api", "repro_torch.service.cache",
+            "repro_torch.service.scheduler", "repro_torch.launch.serve"
+            } <= set(mods)
+    assert len(mods) >= 35
     code = (f"import {', '.join(mods)}; import sys; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "bad = [m for m in sys.modules "
