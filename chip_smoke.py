@@ -6,10 +6,11 @@
 Builds the CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, drives the port's
 paths — single-device maximum-clique discovery one super-step a host read
-and in macro-steps, labeled subgraph isomorphism, top-k pattern mining,
-durable runs killed and resumed, the discovery service and its JSONL
-serve loop, and the co-workload path from the data pipeline through the
-float kernels — at full width, and prints where the time went.  Phases, one line
+and in macro-steps, the same over 2 and 8 shards, labeled subgraph
+isomorphism, top-k pattern mining, durable runs killed and resumed, the
+discovery service and its JSONL serve loop, and the co-workload path from
+the data pipeline through the float kernels — at full width, and prints
+where the time went.  Phases, one line
 each (plus detail):
 
 1. environment: the card's name and power limit, the kernels' build; for
@@ -133,7 +134,21 @@ each (plus detail):
    ``--device cpu`` over one JSONL file of the demo graphs (clique and
    its cache hit, weighted clique, iso and pattern with ``use_pallas``,
    a label predicate, malformed lines, ``shards: 2``, a metrics
-   command): equal response lines, the wall-clock fields aside.
+   command): equal response lines, the wall-clock fields aside;
+12. the sharded engine (``repro_torch.distributed.ShardedEngine``, T = 1),
+   run right after phase 8 on phase 4's computation: phase 4's cell at 2
+   and 8 shards must give phase 4's ``result_keys`` and ``result_states``
+   byte for byte, launch ``masked_intersect`` exactly ``steps x shards``
+   times and count ``syncs == host_syncs == steps``; wall, ms a step, the
+   counters (``rebalanced`` among them), the ``per_shard`` lists, the
+   spans (``engine.rebalance`` among them) and peak device memory, beside
+   the card's name and power limit; the 8-shard run once more under
+   ``torch.profiler`` (idle share, the kernels that take the device time,
+   ``masked_intersect`` launches in the trace, ``steps x shards``).  Then
+   ``tests/test_distributed_engine.py``'s skewed case at 2 shards on
+   ``cuda`` and on ``cpu``: byte-identical answers, and every counter and
+   ``per_shard`` list equal to the reference's (spill, refill, rebalance
+   and late pruning all at work).
 
 The line before the last is the kernels' JSON record (each kernel's fp32
 numbers, and its bf16 numbers under ``bf16`` where phase 6 runs both,
@@ -143,7 +158,8 @@ with phase 9's launches, at the pattern probe's shapes under
 ``pattern_probes`` (the row kernel's times, the tile's beside them), the
 cut-over sweep under ``cutover`` with the plan's ``rows_max_cols``, and
 the launches of each discovery path under ``launches_by_path``, phase
-11's durable and service paths among them), after a line with the whole
+11's durable and service paths and phase 12's shard counts among them),
+after a line with the whole
 run's wall; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result line.  Without a CUDA device, or without the repository's
@@ -194,6 +210,21 @@ ISO_GRAPH = dict(n=32768, m=354_000, n_labels=29, seed=0)
 ISO_HOPS = 3
 ISO_4G = [(0, 1), (1, 2), (2, 3), (1, 3)]
 ISO_ENGINE = dict(k=3, batch=64, pool_capacity=16384, spill="host")
+# phase 12: the sharded engine over phase 4's cell at these shard counts,
+# and tests/test_distributed_engine.py's skewed case (a 12-clique on the
+# even vertices 0-22 of densifying_graph(96, 500, seed=3)) at 2 shards, with
+# the reference package's answer, counters and per-shard lists (CPU JAX, 8
+# forced host devices)
+SHARDED_FULL = (2, 8)
+SKEWED_GRAPH = dict(n=96, m=500, seed=3)
+SKEWED_CLIQUE = tuple(range(0, 24, 2))
+SKEWED_CFG = dict(k=3, batch=8, pool_capacity=64, max_steps=50_000, shards=2)
+SKEWED_WANT = dict(steps=19, candidates=676, expanded=138, pruned=128,
+                   spilled=437, refilled=9, rebalanced=18, late_pruned=410,
+                   syncs=19, host_syncs=19)
+SKEWED_PER_SHARD = dict(spilled=[359, 78], late_pruned=[341, 69],
+                        vpq_backlog=[0, 0], pool_occupancy=[0, 0])
+SKEWED_KEYS = [12, 11, 11]
 
 # masked_intersect (B, N, W): ragged edges in every dimension (the sweeps
 # of tests/test_kernels.py among them), then the main path's call shape
@@ -900,7 +931,8 @@ def span_ms(obs, steps: int) -> dict:
     agg = aggregate(obs.tracer.spans())
     return {name: round(1e3 * agg[name]["total_s"] / steps, 4)
             for name in ("engine.device_compute", "engine.host_sync",
-                         "engine.spill", "engine.refill") if name in agg}
+                         "engine.spill", "engine.refill", "engine.rebalance")
+            if name in agg}
 
 
 def phase_macro_path(comp, want, idle_t1: float) -> dict:
@@ -953,6 +985,107 @@ def phase_macro_path(comp, want, idle_t1: float) -> dict:
         fail(f"the trace shows {traced} {MI_KERNEL} launches in "
              f"{res.steps} steps")
     return launches, res
+
+
+def skewed_graph(gen_module, graph_store):
+    """tests/test_distributed_engine.py's skewed graph: ``SKEWED_GRAPH``
+    with a clique on ``SKEWED_CLIQUE`` (the hot subtree on shard 0)."""
+    import numpy as np
+    g = gen_module.densifying_graph(**SKEWED_GRAPH)
+    extra = [(u, v) for i, u in enumerate(SKEWED_CLIQUE)
+             for v in SKEWED_CLIQUE[i + 1:]]
+    return graph_store.from_edges(
+        g.n, np.concatenate([g.edge_array, np.array(extra, np.int64)]))
+
+
+def phase_sharded(comp, want, env: dict) -> dict:
+    """Phase 12: phase 4's path through ``ShardedEngine`` at each of
+    ``SHARDED_FULL`` shards (T = 1), in this process: phase 4's answer
+    byte for byte, ``masked_intersect`` launched once a shard a step,
+    ``syncs == host_syncs == steps``; wall, ms a step, counters, per-shard
+    lists, spans and peak memory; the last shard count once more under
+    ``torch.profiler``.  Then the skewed case on ``cuda`` and
+    ``cpu``: equal bytes, and the reference's counters and per-shard
+    lists.  Returns the launches by path."""
+    import torch
+    from repro_torch.core import graph as graph_mod
+    from repro_torch.core.clique import make_clique_computation
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.data import synthetic_graphs
+    from repro_torch.distributed import ShardedEngine
+    from repro_torch.kernels import masked_intersect as mi
+    from repro_torch.obs import Observability
+
+    card = env["smi"]
+    launches = {}
+    for shards in SHARDED_FULL:
+        obs = Observability()
+        eng = ShardedEngine(comp, EngineConfig(
+            **FULL_ENGINE, shards=shards, observe=True, observability=obs))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mi.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        n = mi.launches
+        tag = f"12 sharded x{shards}"
+        same_run(f"phase 12 (x{shards}) against phase 4", res, want, ())
+        if n != res.steps * shards:
+            fail(f"{tag}: {n} masked_intersect launches in {res.steps} "
+                 f"steps of {shards} shards")
+        if not res.syncs == res.host_syncs == res.steps:
+            fail(f"{tag}: syncs {res.syncs}, host_syncs {res.host_syncs}, "
+                 f"steps {res.steps}")
+        counters = {name: getattr(res, name) for name in COUNTERS}
+        print(f"[{tag}] keys={[int(x) for x in res.result_keys]} equal to "
+              f"phase 4 byte for byte; {counters} "
+              f"rebalanced={res.rebalanced} wall={wall_s:.3f}s "
+              f"ms_per_step={1e3 * wall_s / res.steps:.3f} "
+              f"masked_intersect_launches={n} "
+              f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB "
+              f"({card})")
+        print(f"[{tag}] per_shard={res.per_shard}")
+        print(f"[{tag}] ms per step by span: {span_ms(obs, res.steps)}")
+        launches[f"clique x{shards} T=1"] = n
+
+    # the most shards once more under torch.profiler: idle share, the
+    # kernels that take the device time, launches counted in the trace
+    prof_res, wall_s, busy_s, by_name, counts = profiled_run(ShardedEngine(
+        comp, EngineConfig(**FULL_ENGINE, shards=shards)))
+    same_run(f"phase 12's profiled rerun (x{shards})", prof_res, res,
+             COUNTERS + ("rebalanced",))
+    traced = kernel_launches(counts, MI_KERNEL)
+    print(f"[{tag}] profiled rerun: wall={wall_s:.3f}s (profiler on) "
+          f"device_busy={busy_s:.3f}s idle_share={1 - busy_s / wall_s:.3f} "
+          f"steps={res.steps} {MI_KERNEL} launches in the trace={traced}")
+    print_top(by_name, res.steps)
+    if traced != res.steps * shards:
+        fail(f"{tag}: the trace shows {traced} {MI_KERNEL} launches in "
+             f"{res.steps} steps of {shards} shards")
+
+    res = {}
+    for device in ("cuda", "cpu"):
+        g = skewed_graph(synthetic_graphs, graph_mod.GraphStore)
+        res[device] = ShardedEngine(
+            make_clique_computation(g, device=device),
+            EngineConfig(**SKEWED_CFG)).run()
+    cu = res["cuda"]
+    same_run("skewed x2 cuda against cpu", cu, res["cpu"],
+             COUNTERS + ("rebalanced",))
+    got = {name: getattr(cu, name) for name in SKEWED_WANT}
+    keys = [int(x) for x in cu.result_keys]
+    if got != SKEWED_WANT or keys != SKEWED_KEYS or \
+            cu.per_shard != SKEWED_PER_SHARD or \
+            res["cpu"].per_shard != SKEWED_PER_SHARD:
+        fail(f"skewed x2: counters {got} keys {keys} per_shard "
+             f"{cu.per_shard}, reference {SKEWED_WANT} keys {SKEWED_KEYS} "
+             f"per_shard {SKEWED_PER_SHARD}")
+    print(f"[12 sharded] skewed x2: cuda == cpu byte for byte == "
+          f"reference, keys {keys}, counters {got}, per_shard "
+          f"{cu.per_shard}")
+    return launches
 
 
 def induced_4g(g, seed: int):
@@ -2249,6 +2382,7 @@ def main() -> int:
     cowork = phase_coworkload(planted_clique_graph(**FULL_GRAPH), ragged)
     phase_merge_topk()
     macro_launches, res8 = phase_macro_path(comp, res, idle_t1)
+    sharded_launches = phase_sharded(comp, res, env)
     described = [comp.describe(row) for key, row in
                  zip(res.result_keys, res.result_states) if key > -2 ** 31]
     del comp
@@ -2273,7 +2407,8 @@ def main() -> int:
         launches_by_path={
             "clique T=1": launches, f"clique T={MACRO_T}": macro_launches,
             **{f"iso T={t}": n for t, n in iso["launches_by_t"].items()},
-            **pattern_launches, **durable_launches, **service_launches})]
+            **pattern_launches, **durable_launches, **service_launches,
+            **sharded_launches})]
     for name, line in (("segment_matmul", 59), ("embedding_bag", 46),
                        ("flash_attention", 84)):
         # the fp32 record first; a bf16 one beside it where both run

@@ -78,9 +78,12 @@ _MACRO_STAT_NAMES = ("steps", "expanded", "created", "pruned",
 @dataclasses.dataclass
 class EngineConfig:
     """The reference's ``EngineConfig``, field for field, so a config can be
-    carried across.  The port runs one device, at any ``steps_per_sync``;
-    :class:`Engine` raises ``NotImplementedError`` for a value it does not
-    support, naming the ROADMAP item that brings it."""
+    carried across.  :class:`Engine` runs one device at any
+    ``steps_per_sync`` and, as the reference's does, does not read
+    ``shards``, ``sync_every``, ``record_bound_trace`` or ``use_pallas``;
+    ``repro_torch.distributed.ShardedEngine`` reads the first three and
+    raises ``NotImplementedError`` for what it does not run yet, naming the
+    ROADMAP item that brings it."""
     k: int = 1                    # result set size
     batch: int = 64               # B: states dequeued per super-step
     pool_capacity: int = 4096     # C: device-resident priority pool slots
@@ -88,11 +91,11 @@ class EngineConfig:
     max_steps: int = 100_000
     spill: str = "host"           # VPQ backing: "host" | "disk" | "none"
     spill_dir: Optional[str] = None
-    shards: int = 1               # sharded engine: ROADMAP Queue 1, item 12
+    shards: int = 1               # ShardedEngine's shard count
     steps_per_sync: int = 1       # T: super-steps per host read
     overflow_accum: Optional[int] = None   # macro-step accumulator rows
-    sync_every: int = 1           # stale bound exchange: item 12
-    record_bound_trace: bool = False       # sharded test hook: item 12
+    sync_every: int = 1           # stale bound exchange: item 12b
+    record_bound_trace: bool = False       # sharded test hook: item 12b
     checkpoint_every: int = 0     # durable runs: Engine.run saves every N
     checkpoint_dir: Optional[str] = None
     use_pallas: bool = False      # the kernel follows the device (item 3)
@@ -196,23 +199,30 @@ def merge_topk(states: torch.Tensor, keys: torch.Tensor, k: int):
     return top_states, top_keys
 
 
+def sharded_bound(result_states: torch.Tensor, result_keys: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """The sharded engine's bound exchange (the reference's
+    ``make_sharded_bound_sync``): the k-th best key over every shard's k
+    result rows, ``[shards·k, S]`` and ``[shards·k]``, with identical
+    (state, key) pairs counted once; ``NEG`` while fewer than k distinct
+    rows exist.  A deferred parent that the rebalancer moves can put its
+    key into two shards' result sets; counted twice, it would tighten the
+    threshold past the true k-th best and prune true results."""
+    return merge_topk(result_states, result_keys, k)[1][k - 1]
+
+
 class Engine:
     """Runs one :class:`SubgraphComputation` to completion (or stepwise) on
     the computation's device."""
 
     def __init__(self, comp: SubgraphComputation, config: EngineConfig):
-        unsupported = [
-            (config.shards > 1 or config.sync_every > 1
-             or config.record_bound_trace, "the sharded engine (shards, "
-             "sync_every, record_bound_trace) is not ported yet: ROADMAP "
-             "Queue 1, item 12"),
-            (config.use_pallas or config.interpret is not None,
-             "use_pallas/interpret have no meaning here: the kernel path "
-             "follows the tensors' device (ROADMAP Queue 1, item 3)"),
-        ]
-        for bad, why in unsupported:
-            if bad:
-                raise NotImplementedError(f"EngineConfig: {why}")
+        # shards, sync_every, record_bound_trace and use_pallas are not read
+        # here, as in the reference's Engine: the sharded engine and the
+        # computations read them
+        if config.interpret is not None:
+            raise NotImplementedError(
+                "EngineConfig: interpret has no meaning here: the kernel "
+                "path follows the tensors' device (ROADMAP Queue 1, item 3)")
         self.comp = comp
         self.cfg = config
         self.device = resolve_device(comp.device)
@@ -277,8 +287,21 @@ class Engine:
         expanded, pruned or spilled, and the pool and result set come back
         as they went in; its stats read zero but for occupancy and
         threshold, which are unchanged."""
-        comp, B, M, k = self.comp, self.B, self.M, self.k
-        A = comp.num_actions
+        (pool_states, pool_prio, pool_ub, result_states, result_keys,
+         batch) = self._dequeue_merge(pool_states, pool_prio, pool_ub,
+                                      result_states, result_keys, active)
+        # 3. dominance threshold: the k-th entry (NEG while R not full)
+        return self._expand_insert(pool_states, pool_prio, pool_ub,
+                                   result_states, result_keys, batch,
+                                   result_keys[self.k - 1], active)
+
+    def _dequeue_merge(self, pool_states, pool_prio, pool_ub,
+                       result_states, result_keys, active=None):
+        """Steps 1-2 of a super-step: dequeue the top ``B`` and merge them
+        into the result set.  Returns the pool (the dequeued slots
+        emptied), the new result set and the dequeued batch ``(states,
+        prio, ub, valid)``."""
+        comp, B, k = self.comp, self.B, self.k
 
         # 1. dequeue top-B
         idx_b = _desc_order(pool_prio)[:B]
@@ -301,8 +324,20 @@ class Engine:
                       zip(merged, (result_states, result_keys))]
         result_states, result_keys = merged
 
-        # 3. dominance threshold: the k-th entry (NEG while R not full)
-        threshold = result_keys[k - 1]
+        return (pool_states, pool_prio, pool_ub, result_states, result_keys,
+                (states_b, prio_b, ub_b, valid_b))
+
+    def _expand_insert(self, pool_states, pool_prio, pool_ub, result_states,
+                       result_keys, batch, threshold, active=None):
+        """Steps 3-5 of a super-step against ``threshold`` (the local k-th
+        key, or the sharded engine's exchanged bound): prune the dequeued
+        batch, score and materialize its children, merge-sort insert.
+        Returns what :meth:`_step_impl` returns."""
+        comp, B, M = self.comp, self.B, self.M
+        A = comp.num_actions
+        states_b, prio_b, ub_b, valid_b = batch
+
+        # 3. dominance pruning of the dequeued states
         expand_b = valid_b & (ub_b >= threshold)
         pruned = (valid_b & ~expand_b).sum()
 
@@ -348,7 +383,7 @@ class Engine:
                     result_keys, t_max: int, vpq_nonempty: bool):
         """Up to ``t_max`` fused super-steps with no host read between them
         (the reference's DESIGN.md §13).  Only the ``sync_every = 1`` form
-        is ported (``_macro_segmented`` is ROADMAP Queue 1, item 12)."""
+        is ported (``_macro_segmented`` is ROADMAP Queue 1, item 12b)."""
         return self._macro_flat(pool_states, pool_prio, pool_ub,
                                 result_states, result_keys, t_max,
                                 vpq_nonempty)

@@ -1,0 +1,400 @@
+"""Sharded discovery engine (the reference's DESIGN.md §11), on PyTorch.
+
+The port of ``repro.distributed.sharded_engine`` at one super-step a host
+read (``steps_per_sync = 1``, ``sync_every = 1``).  One query's frontier
+is split over ``shards`` shards, each with its own device pool, result set
+and spill queue, that share one pruning bound:
+
+* **seed deal** — the initial frontier is dealt round-robin: shard ``i``
+  gets seeds ``i, i + shards, ...``, ordered by priority with ties in
+  *descending* index order (the reference's reversed stable ascending
+  sort); seeds past a shard's pool go straight to its spill queue;
+* **one super-step** — steps 1-2 of the single-device super-step
+  (:meth:`Engine._dequeue_merge`) for every shard, then the bound exchange
+  (:func:`~repro_torch.core.engine.sharded_bound`: the k-th best key over
+  every shard's result rows, duplicates counted once), then steps 3-5
+  (:meth:`Engine._expand_insert`) for every shard against that one bound,
+  then one host read of every shard's stats.  So ``masked_intersect``
+  launches once per shard per step, for a shard with an empty pool too,
+  as in the reference's ``shard_map`` body; ``syncs`` and ``host_syncs``
+  grow by one a step;
+* **per-shard spill** — each shard's overflow goes to its own
+  :class:`~repro_torch.core.vpq.VirtualPriorityQueue`
+  (``spill_dir/shard{i}`` on disk), only its valid prefix copied to the
+  host; refills prune late against the exchanged bound;
+* **host rebalancer** — after the refills, a shard below the ``C/2``
+  watermark whose own queue is empty pulls spilled work from the
+  most-loaded queues, in priority order.
+
+The pools and result sets keep the reference's global layout (``[shards·C,
+S]``, ``[shards·k, S]``); shard ``i`` works on its slice.  Answers, every
+``EngineResult`` counter and every ``per_shard`` list are the reference's,
+byte for byte, at any shard count.
+
+Decisions that differ from the reference: the shard axis is a Python loop
+over slices of tensors on the computation's one device, so any ``shards >=
+1`` runs (the reference needs that many JAX devices and raises beyond
+them), and ``shard_map_compat`` has no counterpart.  ``shards < 1`` is a
+``ValueError``, as in the reference.  Macro-steps, ``sync_every > 1`` and
+``record_bound_trace`` (ROADMAP Queue 1, item 12b) and the sharded
+checkpoint (item 12c) raise ``NotImplementedError`` naming their item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.api import NEG, SubgraphComputation
+from repro_torch.core.engine import (_STAT_NAMES, Engine, EngineConfig,
+                                     EngineResult, merge_topk, sharded_bound)
+from repro_torch.core.vpq import VirtualPriorityQueue
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"ShardedEngine: {what} is not ported yet: ROADMAP Queue 1, "
+        f"item {item}")
+
+
+@dataclasses.dataclass
+class ShardedEngineState:
+    """Resumable sharded search state.  The tensors live on the engine's
+    device in the reference's global layout (shard ``i`` owns rows ``i·C``
+    to ``(i+1)·C`` of the pool, ``i·k`` to ``(i+1)·k`` of the result set);
+    the queues and counters are on the host."""
+
+    pool_states: torch.Tensor     # [shards*C, S]
+    pool_prio: torch.Tensor       # [shards*C]
+    pool_ub: torch.Tensor         # [shards*C]
+    result_states: torch.Tensor   # [shards*k, S] (per-shard local top-k)
+    result_keys: torch.Tensor     # [shards*k]
+    vpqs: List[VirtualPriorityQueue]
+    pool_occupancy: np.ndarray    # [shards] int64
+    steps: int = 0
+    candidates: int = 0
+    expanded: int = 0
+    pruned: int = 0
+    refilled: int = 0
+    rebalanced: int = 0
+    syncs: int = 0                # bound exchanges run so far
+    host_syncs: int = 0           # host-device round-trips taken so far
+    threshold: int = int(NEG)
+    done: bool = False            # every shard pool and queue drained
+
+
+class ShardedEngine:
+    """Runs one :class:`SubgraphComputation` over ``config.shards`` shards
+    on the computation's device, with :class:`Engine`'s interface
+    (``start`` / ``step`` / ``finalize`` / ``run``).  ``config.batch``,
+    ``pool_capacity`` and ``max_children`` are per-shard shapes."""
+
+    def __init__(self, comp: SubgraphComputation, config: EngineConfig):
+        self.comp = comp
+        self.cfg = config
+        self.shards = config.shards
+        if self.shards < 1:
+            raise ValueError(f"shards must be >= 1, got {self.shards}")
+        if config.sync_every < 1:
+            raise ValueError(
+                f"sync_every must be >= 1, got {config.sync_every}")
+        # the reference's inner step count: K clamped to the accumulator,
+        # steps_per_sync raised to a multiple of K, 2 under bound traces
+        blk = config.batch + max(config.max_children or 0, comp.num_actions)
+        K = config.sync_every
+        if config.overflow_accum:
+            K = max(1, min(K, config.overflow_accum // blk))
+        T = max(1, config.steps_per_sync)
+        if K > 1:
+            T = -(-max(T, K) // K) * K
+        if config.record_bound_trace:
+            T = max(T, 2)
+        if T > 1:
+            raise _not_ported("steps_per_sync > 1, sync_every > 1 or "
+                              "record_bound_trace under shards", "12b")
+
+        # the per-shard engine: the super-step's two halves, the insert
+        # and the per-shard shapes
+        self._eng = Engine(comp, dataclasses.replace(
+            config, shards=1, steps_per_sync=1, sync_every=1))
+        self.device = self._eng.device
+        self.C, self.S, self.k = self._eng.C, self._eng.S, config.k
+
+        # observability: the inner engine's instance, so sharded and
+        # per-shard telemetry land in one registry
+        self.obs = self._eng.obs
+        self._span = self.obs.tracer.span
+        self._m_rebalanced = self.obs.counter(
+            "engine_rebalanced_total",
+            "spilled entries moved across shards")
+        self._m_syncs = self.obs.counter(
+            "engine_syncs_total", "bound-exchange collectives run")
+
+    def _slices(self, i: int):
+        """Shard ``i``'s rows of the pool and of the result set."""
+        C, k = self.C, self.k
+        return slice(i * C, (i + 1) * C), slice(i * k, (i + 1) * k)
+
+    # ----------------------------------------------------------------- start
+    def start(self) -> ShardedEngineState:
+        """Deal the seeds over the shards and return a resumable state."""
+        with self._span("engine.start"):
+            return self._start_impl()
+
+    def _start_impl(self) -> ShardedEngineState:
+        cfg, S, C, k, dev = self.cfg, self.S, self.C, self.k, self.device
+        shards = self.shards
+        vpqs = [VirtualPriorityQueue(
+            state_width=S, backend=cfg.spill,
+            spill_dir=(os.path.join(cfg.spill_dir, f"shard{i}")
+                       if cfg.spill_dir is not None else None),
+            obs=self.obs) for i in range(shards)]
+
+        states0, prio0, ub0 = self.comp.init_frontier()
+        n0 = states0.shape[0]
+        prio_host = prio0.cpu().numpy()
+
+        pool_states = torch.zeros((shards * C, S), dtype=torch.int32,
+                                  device=dev)
+        pool_prio = torch.full((shards * C,), NEG, dtype=torch.int32,
+                               device=dev)
+        pool_ub = torch.full((shards * C,), NEG, dtype=torch.int32,
+                             device=dev)
+        occ = np.zeros(shards, np.int64)
+        for i in range(shards):
+            # round-robin seed deal: shard i gets seeds i, i+shards, ...,
+            # by priority, ties in descending index order (the reference's
+            # reversed stable ascending sort)
+            idx = np.arange(i, n0, shards)
+            order = idx[np.argsort(prio_host[idx].astype(np.int64),
+                                   kind="stable")[::-1]]
+            take = torch.from_numpy(order).to(dev)
+            s_i, p_i, u_i = states0[take], prio0[take], ub0[take]
+            m = min(len(order), C)
+            rows = slice(i * C, i * C + m)
+            pool_states[rows], pool_prio[rows], pool_ub[rows] = \
+                s_i[:m], p_i[:m], u_i[:m]
+            occ[i] = m
+            if len(order) > m:   # more seeds than per-shard pool slots
+                vpqs[i].maybe_push(*(x[m:].cpu().numpy()
+                                     for x in (s_i, p_i, u_i)))
+
+        return ShardedEngineState(
+            pool_states=pool_states, pool_prio=pool_prio, pool_ub=pool_ub,
+            result_states=torch.zeros((shards * k, S), dtype=torch.int32,
+                                      device=dev),
+            result_keys=torch.full((shards * k,), NEG, dtype=torch.int32,
+                                   device=dev),
+            vpqs=vpqs, pool_occupancy=occ, candidates=int(n0))
+
+    # ------------------------------------------------------------------ step
+    def _super_step(self, st: ShardedEngineState):
+        """One super-step of every shard, enqueued with no host read: steps
+        1-2 for each shard, the bound exchange over all their result rows,
+        steps 3-5 for each against that bound.  Updates the pools and
+        result sets in ``st``; returns each shard's overflow block and the
+        stats as one ``[shards, 6]`` int64 tensor."""
+        eng = self._eng
+        heads = []
+        for i in range(self.shards):
+            p, r = self._slices(i)
+            heads.append(eng._dequeue_merge(
+                st.pool_states[p], st.pool_prio[p], st.pool_ub[p],
+                st.result_states[r], st.result_keys[r]))
+        st.result_states = torch.cat([h[3] for h in heads])
+        st.result_keys = torch.cat([h[4] for h in heads])
+        threshold = sharded_bound(st.result_states, st.result_keys, self.k)
+        overflow, stats = [], []
+        for i, head in enumerate(heads):
+            ps, pp, pu, _, _, over, stat = eng._expand_insert(*head,
+                                                              threshold)
+            p, _ = self._slices(i)
+            st.pool_states[p], st.pool_prio[p], st.pool_ub[p] = ps, pp, pu
+            overflow.append(over)
+            stats.append(stat)
+        return overflow, torch.stack(stats)
+
+    def step(self, st: ShardedEngineState,
+             max_inner: Optional[int] = None) -> ShardedEngineState:
+        """Advance every shard one super-step; spill, refill, rebalance.
+        ``max_inner`` is :meth:`Engine.step`'s cap on fused steps, which a
+        step of one super-step does not need.  Updates ``st`` in place and
+        returns it."""
+        t0 = time.perf_counter() if self.obs.enabled else 0.0
+        with self._span("engine.step"):
+            # the launches are asynchronous: device time that the enqueue
+            # does not cover lands in host_sync, where the stats read waits
+            with self._span("engine.device_compute"):
+                overflow, stats = self._super_step(st)
+            with self._span("engine.host_sync"):
+                # each name -> one value a shard
+                stats = dict(zip(_STAT_NAMES, zip(*stats.tolist())))
+            st.steps += 1
+            st.syncs += 1          # one bound exchange a step
+            st.host_syncs += 1
+            st.expanded += sum(stats["expanded"])
+            st.candidates += sum(stats["created"])
+            st.pruned += sum(stats["pruned"])
+            st.threshold = stats["threshold"][0]   # the same on every shard
+            occ = np.asarray(stats["pool_occupancy"], np.int64)
+
+            with self._span("engine.spill"):
+                for vpq, block, n in zip(st.vpqs, overflow,
+                                         stats["overflow"]):
+                    if n:   # the valid rows lead the block; ship only those
+                        vpq.maybe_push(*(x[:n].cpu().numpy() for x in block))
+            self._refill_rebalance(st, occ)
+        self._after_step(st, stats, t0)
+        return st
+
+    def _after_step(self, st: ShardedEngineState, stats: dict,
+                    t0: float) -> None:
+        """Record one step() call's metrics (no-op handles when off)."""
+        eng = self._eng
+        eng._m_steps.inc(1)
+        eng._m_host_syncs.inc()
+        self._m_syncs.inc(1)
+        eng._m_expanded.inc(sum(stats["expanded"]))
+        eng._m_candidates.inc(sum(stats["created"]))
+        eng._m_pruned.inc(sum(stats["pruned"]))
+        eng._g_occupancy.set(int(st.pool_occupancy.sum()))
+        eng._g_threshold.set(st.threshold)
+        if self.obs.enabled:
+            eng._h_step.observe(time.perf_counter() - t0)
+
+    # ----------------------------------------------------- refill/rebalance
+    def _refill_rebalance(self, st: ShardedEngineState,
+                          occ: np.ndarray) -> None:
+        """Refill each shard below the ``C/2`` watermark from its own queue,
+        then move spilled work to the shards that cannot refill themselves,
+        and insert what each shard got; sets ``pool_occupancy`` and
+        ``done``."""
+        shards, C = self.shards, self.C
+        blocks = [[] for _ in range(shards)]   # (states, prio, ub) pops
+        fill = np.zeros(shards, np.int64)
+        # refill: per shard, below the C/2 watermark, from its own queue
+        if any(occ[i] < C // 2 and len(st.vpqs[i]) for i in range(shards)):
+            with self._span("engine.refill"):
+                for i in range(shards):
+                    if occ[i] < C // 2 and len(st.vpqs[i]):
+                        chunk = st.vpqs[i].pop_chunk(
+                            C - int(occ[i]), min_ub=st.threshold)
+                        r = len(chunk[1])
+                        if r:
+                            blocks[i].append(chunk)
+                            fill[i] = r
+                            st.refilled += r
+                            self._eng._m_refilled.inc(r)
+
+        # rebalance: shards that cannot refill themselves pull spilled work
+        # from the most-loaded queues (the donor pop is a sorted k-way
+        # merge, the insert a merge-sort: priority order is kept)
+        needy = [i for i in range(shards)
+                 if occ[i] + fill[i] < C // 2 and len(st.vpqs[i]) == 0]
+        if needy:
+            with self._span("engine.rebalance"):
+                donors = sorted(
+                    (i for i in range(shards) if len(st.vpqs[i])),
+                    key=lambda i: -len(st.vpqs[i]))
+                for i in needy:
+                    for d in donors:
+                        room = C // 2 - int(occ[i] + fill[i])
+                        if room <= 0:
+                            break
+                        if not len(st.vpqs[d]):
+                            continue
+                        chunk = st.vpqs[d].pop_chunk(
+                            min(room, len(st.vpqs[d])), min_ub=st.threshold)
+                        m = len(chunk[1])
+                        if m:
+                            blocks[i].append(chunk)
+                            fill[i] += m
+                            st.rebalanced += m
+                            self._m_rebalanced.inc(m)
+
+        if fill.any():
+            self._insert_blocks(st, blocks)
+        st.pool_occupancy = occ + fill
+        st.done = bool((st.pool_occupancy == 0).all()
+                       and all(len(v) == 0 for v in st.vpqs))
+
+    def _insert_blocks(self, st: ShardedEngineState, blocks: list) -> None:
+        """Merge-sort each shard's popped rows into its pool.  The reference
+        inserts one ``[C]``-row block into every shard, its empty rows after
+        the popped ones; here only the popped rows are uploaded, and a
+        shard with none is left alone.  Both give the same pools, byte for
+        byte: a pool is always sorted (the deal fills it in order, and the
+        step and the insert leave the top ``C`` of a stable sort), so the
+        block's empty rows sort after the pool's own, re-sorting a pool
+        changes nothing, and the insert's overflow holds only empty rows,
+        since occupancy + fill <= C."""
+        eng = self._eng
+        for i, chunks in enumerate(blocks):
+            if not chunks:
+                continue
+            p, _ = self._slices(i)
+            ps, pp, pu, *_ = eng._insert_impl(
+                *((pool[p], eng._to_device(np.concatenate(parts)))
+                  for pool, parts in zip(
+                      (st.pool_states, st.pool_prio, st.pool_ub),
+                      zip(*chunks))))
+            st.pool_states[p], st.pool_prio[p], st.pool_ub[p] = ps, pp, pu
+
+    # -------------------------------------------------------------- finalize
+    def finalize(self, st: ShardedEngineState) -> EngineResult:
+        """Merge the shards' result sets canonically, close the queues and
+        package the result."""
+        with self._span("engine.finalize"):
+            return self._finalize_impl(st)
+
+    def _finalize_impl(self, st: ShardedEngineState) -> EngineResult:
+        result_states, result_keys = merge_topk(
+            st.result_states, st.result_keys, self.k)
+        per_shard = dict(
+            spilled=[int(v.total_spilled) for v in st.vpqs],
+            late_pruned=[int(v.total_late_pruned) for v in st.vpqs],
+            vpq_backlog=[len(v) for v in st.vpqs],
+            pool_occupancy=[int(x) for x in st.pool_occupancy])
+        for v in st.vpqs:
+            v.close()
+        return EngineResult(
+            result_states=result_states.cpu().numpy(),
+            result_keys=result_keys.cpu().numpy(),
+            steps=st.steps, candidates=st.candidates, expanded=st.expanded,
+            pruned=st.pruned,
+            spilled=sum(per_shard["spilled"]), refilled=st.refilled,
+            rebalanced=st.rebalanced,
+            late_pruned=sum(per_shard["late_pruned"]), syncs=st.syncs,
+            host_syncs=st.host_syncs, per_shard=per_shard)
+
+    # ------------------------------------------------------- checkpointing
+    def save_checkpoint(self, mgr, st: ShardedEngineState,
+                        blocking: bool = False) -> None:
+        raise _not_ported("the sharded checkpoint", "12c")
+
+    def resume(self, source,
+               step: Optional[int] = None) -> ShardedEngineState:
+        raise _not_ported("the sharded checkpoint", "12c")
+
+    # ------------------------------------------------------------------- run
+    def run(self, progress_every: int = 0,
+            resume: bool = False) -> EngineResult:
+        """Run to completion (or ``max_steps``).  Periodic checkpoints and
+        ``resume`` from a ``checkpoint_dir`` are item 12c."""
+        if self.cfg.checkpoint_dir and (self.cfg.checkpoint_every > 0
+                                        or resume):
+            raise _not_ported("checkpoint_every and resume under shards",
+                              "12c")
+        st = self.start()
+        while not st.done and st.steps < self.cfg.max_steps:
+            self.step(st)
+            if progress_every and st.steps % progress_every == 0:
+                print(f"[{self.comp.name}/x{self.shards}] step={st.steps} "
+                      f"occ={st.pool_occupancy.tolist()} "
+                      f"vpq={[len(v) for v in st.vpqs]} "
+                      f"thr={st.threshold} cand={st.candidates}")
+        return self.finalize(st)

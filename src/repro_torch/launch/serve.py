@@ -32,7 +32,7 @@ The loop runs on ``cuda`` unless ``--device`` names another device (it
 raises without a card); ``--device cpu`` runs every kernel's plain
 version.  The request schema is the reference's (docs/API.md), with two
 requests answered as errors here: ``interpret`` not null, and
-``shards > 1`` (the sharded engine is ROADMAP Queue 1, item 12)::
+``shards > 1`` (the service's sharded path is ROADMAP Queue 1, item 12c)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests reqs.jsonl
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu < reqs.jsonl

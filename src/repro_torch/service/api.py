@@ -9,12 +9,12 @@ response, never a crash):
 
 * ``interpret`` must be null: the kernel path follows the tensors' device
   (the service's ``device``), so a Pallas interpret mode has no meaning;
-* ``shards > 1`` needs the sharded engine, not ported yet (ROADMAP Queue 1,
-  item 12);
+* ``shards > 1`` needs the sharded engine, which the service does not run
+  yet (ROADMAP Queue 1, item 12c);
 * ``use_pallas`` stays on the wire and out of the cache key as in the
   reference, and picks the candidate algorithm of iso and of the pattern
-  probes; it never reaches the port's :class:`EngineConfig`, and clique's
-  kernel follows the device.
+  probes; the :class:`EngineConfig` carries it, as the reference's does,
+  and the engine does not read it: clique's kernel follows the device.
 
 A :class:`DiscoveryRequest` is a declarative query spec — workload, graph
 handle, ``k``, and budgets — that :func:`compile_request` turns into the
@@ -251,8 +251,8 @@ class DiscoveryRequest:
                 "(DESIGN.md §15)")
         if self.shards > 1:
             raise ValidationError(
-                "shards > 1 needs the sharded engine, which is not ported "
-                "yet: ROADMAP Queue 1, item 12")
+                "shards > 1 needs the sharded engine, which the service "
+                "does not run yet: ROADMAP Queue 1, item 12c")
         if self.interpret is not None:
             raise ValidationError(
                 "interpret has no meaning here: the kernel path follows "
@@ -480,15 +480,16 @@ def compile_request(req: DiscoveryRequest, registry: GraphRegistry,
         return CompiledQuery(request=req, graph=g, kind="aggregate")
 
     # validation keeps shards at 1, so the single-device engine runs the
-    # query, and it ignores sync_every as the reference's single-device
-    # Engine does; use_pallas goes to the computation that reads it
+    # query; it ignores sync_every and use_pallas, as the reference's
+    # single-device Engine does, and the computation reads use_pallas
     cfg = EngineConfig(k=req.k, batch=req.batch,
                        pool_capacity=req.pool_capacity,
                        max_steps=req.step_budget,
                        steps_per_sync=req.steps_per_sync,
+                       sync_every=req.sync_every,
                        checkpoint_every=req.checkpoint_every,
                        checkpoint_dir=req.checkpoint_dir,
-                       observe=req.observe)
+                       use_pallas=req.use_pallas, observe=req.observe)
 
     if req.workload == "clique":
         from repro_torch.core.clique import make_clique_computation

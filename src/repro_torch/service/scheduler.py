@@ -429,8 +429,9 @@ class DiscoveryService:
                 # observing engines record into the service registry so a
                 # single snapshot covers the whole process (DESIGN.md §16)
                 compiled.engine_cfg.observability = self.obs
-            # validation rejects shards > 1 (the sharded engine is ROADMAP
-            # Queue 1, item 12), so every query runs on the one device
+            # validation rejects shards > 1 (the service's sharded path is
+            # ROADMAP Queue 1, item 12c), so every query runs on the one
+            # device
             engine = Engine(compiled.comp, compiled.engine_cfg)
             self._engines.put(engine_key, engine)
         return EngineQueryTask(req, engine, obs=self.obs)

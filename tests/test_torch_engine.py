@@ -233,16 +233,34 @@ def test_entry_point_raises_without_cuda_device():
         make_clique_computation(g)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("record_bound_trace", True, "item 12"), ("shards", 2, "item 12"),
-    ("sync_every", 2, "item 12"), ("interpret", True, "item 3"),
-    ("use_pallas", True, "item 3")])
+@pytest.mark.parametrize("field,value,item", [("interpret", True, "item 3")])
 def test_unsupported_config_names_roadmap_item(field, value, item):
     comp = make_clique_computation(gen.densifying_graph(40, 60, 0),
                                    device="cpu")
     cfg = dataclasses.replace(engine.EngineConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=item):
         engine.Engine(comp, cfg)
+
+
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("field,value", [
+    ("shards", 2), ("sync_every", 4), ("record_bound_trace", True),
+    ("use_pallas", True)])
+def test_knobs_the_reference_engine_ignores(field, value, T):
+    """The reference's single-device Engine does not read these four
+    fields (ShardedEngine and the computations do): the port's runs with
+    each set and gives the reference's bytes and counters."""
+    cfg = dict(k=3, batch=8, pool_capacity=64, steps_per_sync=T,
+               **{field: value})
+    want = ref_engine.Engine(
+        ref_make_clique(ref_gen.densifying_graph(40, 60, 0)),
+        ref_engine.EngineConfig(**cfg)).run()
+    got = engine.Engine(
+        make_clique_computation(gen.densifying_graph(40, 60, 0),
+                                device="cpu"),
+        engine.EngineConfig(**cfg)).run()
+    _assert_same_result(got, want)
+    assert list(got.result_keys) == [3, 3, 3] and got.steps == 10
 
 
 def test_engine_config_mirrors_reference_fields():

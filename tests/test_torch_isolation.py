@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of repro_torch (the
-checkpoint, runtime, service and launch subpackages among them) loads
-neither jax nor anything of repro, and no source of the port (nor
-chip_smoke.py) names repro in an import."""
+checkpoint, runtime, service, launch and distributed subpackages among
+them) loads neither jax nor anything of repro, and no source of the port
+(nor chip_smoke.py) names repro in an import."""
 import os
 import pathlib
 import re
@@ -28,7 +28,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.checkpoint.manager", "repro_torch.runtime",
             "repro_torch.runtime.fault_tolerance", "repro_torch.service",
             "repro_torch.service.api", "repro_torch.service.cache",
-            "repro_torch.service.scheduler", "repro_torch.launch.serve"
+            "repro_torch.service.scheduler", "repro_torch.launch.serve",
+            "repro_torch.distributed", "repro_torch.distributed.sharded_engine"
             } <= set(mods)
     assert len(mods) >= 35
     code = (f"import {', '.join(mods)}; import sys; "

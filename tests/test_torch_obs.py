@@ -5,7 +5,7 @@ service cases at one shard, each run held to the reference's.
 * ``observe=True`` is a pure observer: answers and every counter equal the
   reference's unobserved run at ``steps_per_sync`` 1 and 16, and the
   metrics count what the run did (the 2- and 8-shard cases wait for the
-  sharded engine, ROADMAP Queue 1, item 12);
+  sharded engine under observation, ROADMAP Queue 1, item 12c);
 * observe off records nothing; the top-level spans cover the run's wall;
 * the checkpoint spans and metrics; the service metrics; ``observe`` out
   of the result-cache key; the service's default no-op.

@@ -10,7 +10,7 @@
   straggler count, which times steps);
 * the port's differences, each answered as an error response: the
   weighted-clique ``use_pallas`` rejection (the reference's), ``interpret``
-  not null, ``shards: 2`` (ROADMAP Queue 1, item 12); and ``device=None``
+  not null, ``shards: 2`` (ROADMAP Queue 1, item 12c); and ``device=None``
   raising without a card.
 """
 import dataclasses
@@ -285,9 +285,9 @@ def test_weighted_clique_rejects_kernel_path():
 @pytest.mark.parametrize("fields,words", [
     (dict(workload="clique", interpret=True), "has no meaning here"),
     (dict(workload="clique", interpret=False), "has no meaning here"),
-    (dict(workload="clique", shards=2), "ROADMAP Queue 1, item 12"),
+    (dict(workload="clique", shards=2), "ROADMAP Queue 1, item 12c"),
     (dict(workload="clique", shards=2, sync_every=2, steps_per_sync=2),
-     "item 12")])
+     "item 12c")])
 def test_port_rejects_what_it_does_not_run(social, cite, fields, words):
     """``interpret`` has no meaning on the port and ``shards > 1`` needs
     the sharded engine: each is an error response, and the service goes
@@ -310,6 +310,27 @@ def test_sync_every_runs_on_one_device(social, cite):
                                    use_cache=False))
     assert a.status == "ok", a.error
     assert (a.result_keys, a.results) == (b.result_keys, b.results)
+
+
+@pytest.mark.parametrize("fields", [
+    dict(graph="social", workload="clique", k=3, sync_every=4,
+         steps_per_sync=4, use_pallas=True),
+    dict(graph="cite", workload="iso", k=3, q_edges=((1, 0), (2, 1)),
+         q_labels=(0, 1, 2), sync_every=2, use_pallas=True)])
+def test_compile_request_carries_engine_knobs_like_reference(social, cite,
+                                                             fields):
+    """``engine_cfg`` carries ``sync_every``, ``steps_per_sync`` and
+    ``use_pallas`` as the reference's does (the engine does not read the
+    first and the last)."""
+    from repro.service.api import compile_request as ref_compile
+    from repro_torch.service.api import compile_request
+    got = compile_request(DiscoveryRequest(**fields),
+                          make_service(social, cite).registry,
+                          device="cpu").engine_cfg
+    want = ref_compile(RefRequest(**fields),
+                       make_ref_service().registry).engine_cfg
+    for name in ("sync_every", "steps_per_sync", "use_pallas"):
+        assert getattr(got, name) == getattr(want, name), name
 
 
 def test_default_device_raises_without_card(social):
