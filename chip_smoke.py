@@ -6,7 +6,8 @@
 Builds the CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, drives the port's
 paths — single-device maximum-clique discovery one super-step a host read
-and in macro-steps, the same over 2 and 8 shards, labeled subgraph
+and in macro-steps, the same over 2 and 8 shards, in macro-steps with
+stale bounds too, labeled subgraph
 isomorphism, top-k pattern mining, durable runs killed and resumed, the
 discovery service and its JSONL serve loop, and the co-workload path from
 the data pipeline through the float kernels — at full width, and prints
@@ -148,7 +149,29 @@ each (plus detail):
    ``tests/test_distributed_engine.py``'s skewed case at 2 shards on
    ``cuda`` and on ``cpu``: byte-identical answers, and every counter and
    ``per_shard`` list equal to the reference's (spill, refill, rebalance
-   and late pruning all at work).
+   and late pruning all at work);
+13. the sharded engine in macro-steps (``steps_per_sync=16``) with stale
+   bounds (``sync_every=K``), right after phase 12, its peak memory its
+   own: one 2-shard macro-step at K = 4 is first shown to enqueue with no
+   host read (sync debug mode "error"); (a) phase 4's cell at 2 shards, K
+   = 1 and 4, and (b) at 8 shards, K = 4: phase 4's bytes, ``masked_intersect``
+   launched ``shards x 16 x host_syncs`` times (the no-op inner steps
+   after each exit vote included), ``syncs == ceil(steps / K)``, at K = 1
+   phase 12's ``spilled`` and ``late_pruned`` with fewer ``host_syncs``;
+   wall, ms a step, no-op inner steps, counters beside phase 12's,
+   ``per_shard``, spans and peak memory; (b) once more under
+   ``torch.profiler``; (c) ``benchmarks/bench_distributed.py``'s
+   stale-bound sweep at its own size (``decoy_trap_graph(3400, 8000,
+   ...)``, k = 4, C = 64, T = 16; 1, 2 and 8 shards x K = 1, 4, 16), each
+   run byte for byte the port's single-device answer with every counter
+   the reference's, and its wall; (d) the skewed case at 2 shards, T = 4,
+   K = 2 with ``record_bound_trace`` on ``cuda`` and ``cpu``: equal
+   bytes, the reference's counters and ``per_shard`` lists (the bound
+   traces among them), the bound used never above the fresh one.
+
+``python3 chip_smoke.py --sharded-run '<json>'`` runs phase 4's cell
+through ``ShardedEngine`` at the given fields alone and prints one JSON
+line (wall, counters, launches, no-op inner steps, spans, peak memory).
 
 The line before the last is the kernels' JSON record (each kernel's fp32
 numbers, and its bf16 numbers under ``bf16`` where phase 6 runs both,
@@ -158,7 +181,7 @@ with phase 9's launches, at the pattern probe's shapes under
 ``pattern_probes`` (the row kernel's times, the tile's beside them), the
 cut-over sweep under ``cutover`` with the plan's ``rows_max_cols``, and
 the launches of each discovery path under ``launches_by_path``, phase
-11's durable and service paths and phase 12's shard counts among them),
+11's durable and service paths and phases 12's and 13's runs among them),
 after a line with the whole
 run's wall; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
@@ -225,6 +248,61 @@ SKEWED_WANT = dict(steps=19, candidates=676, expanded=138, pruned=128,
 SKEWED_PER_SHARD = dict(spilled=[359, 78], late_pruned=[341, 69],
                         vpq_backlog=[0, 0], pool_occupancy=[0, 0])
 SKEWED_KEYS = [12, 11, 11]
+# phase 13: the sharded engine in macro-steps (T = MACRO_T) with stale
+# bounds (sync_every = K).  (a) phase 4's cell at 2 shards, K = 1 and 4;
+# (b) at 8 shards, K = 4, where SHARDED_MACRO_8 holds (PERF.md §5: its
+# wall measured alone with --sharded-run); (c) benchmarks/
+# bench_distributed.py's stale-bound sweep at its own size; (d) the skewed
+# case at T = 4, K = 2 with bound traces.  The reference package's
+# answers, counters and per-shard lists (CPU JAX, 8 forced host devices)
+SHARDED_MACRO = ((2, 1), (2, 4))
+SHARDED_MACRO_8 = (8, 4)
+STALE_GRAPH = dict(n=3400, m=8000, skew=0.15, clusters=28, cluster_size=100,
+                   cluster_p=0.141, clique_size=8, stride=8, seed=7)
+STALE_CFG = dict(k=4, batch=8, pool_capacity=64, max_steps=500_000,
+                 steps_per_sync=16)
+STALE_SHARDS = (1, 2, 8)
+STALE_KS = (1, 4, 16)
+STALE_KEYS = [8, 7, 7, 7]
+STALE_WANT = {      # BENCH_PR6.json's stale_sweep rows, each one equal
+    (1, 1): dict(steps=830, candidates=8293, expanded=6558, pruned=77,
+                 spilled=3905, refilled=2247, rebalanced=0, late_pruned=1658,
+                 syncs=830, host_syncs=84),
+    (1, 4): dict(steps=832, candidates=8293, expanded=6558, pruned=77,
+                 spilled=3866, refilled=2208, rebalanced=0, late_pruned=1658,
+                 syncs=208, host_syncs=72),
+    (1, 16): dict(steps=928, candidates=8290, expanded=6557, pruned=81,
+                  spilled=3757, refilled=2105, rebalanced=0, late_pruned=1652,
+                  syncs=58, host_syncs=58),
+    (2, 1): dict(steps=383, candidates=7951, expanded=5994, pruned=122,
+                 spilled=4105, refilled=2091, rebalanced=179, late_pruned=1835,
+                 syncs=383, host_syncs=78),
+    (2, 4): dict(steps=388, candidates=7956, expanded=6001, pruned=120,
+                 spilled=3974, refilled=1976, rebalanced=163, late_pruned=1835,
+                 syncs=97, host_syncs=47),
+    (2, 16): dict(steps=480, candidates=7934, expanded=5993, pruned=169,
+                  spilled=4056, refilled=2188, rebalanced=96, late_pruned=1772,
+                  syncs=30, host_syncs=30),
+    (8, 1): dict(steps=46, candidates=5527, expanded=2304, pruned=468,
+                 spilled=4634, refilled=1759, rebalanced=120, late_pruned=2755,
+                 syncs=46, host_syncs=29),
+    (8, 4): dict(steps=48, candidates=5535, expanded=2333, pruned=464,
+                 spilled=4623, refilled=1781, rebalanced=104, late_pruned=2738,
+                 syncs=12, host_syncs=9),
+    (8, 16): dict(steps=96, candidates=5565, expanded=2525, pruned=790,
+                  spilled=4623, refilled=2277, rebalanced=96, late_pruned=2250,
+                  syncs=6, host_syncs=6),
+}
+SKEWED_MACRO = dict(steps_per_sync=4, sync_every=2, record_bound_trace=True)
+SKEWED_MACRO_WANT = dict(steps=20, candidates=673, expanded=135, pruned=131,
+                         spilled=437, refilled=11, rebalanced=19,
+                         late_pruned=407, syncs=10, host_syncs=6)
+SKEWED_MACRO_PER_SHARD = dict(
+    spilled=[359, 78], late_pruned=[340, 67], vpq_backlog=[0, 0],
+    pool_occupancy=[0, 0],
+    bound_used=[[1, 2, 3, 4, 5, 6, 7, 8, 9, 10] + [11] * 10,
+                [1, 2, 3, 4, 5, 5, 7, 7, 9, 9] + [11] * 10],
+    bound_fresh=[[1, 2, 3, 4, 5, 6, 7, 8, 9, 10] + [11] * 10] * 2)
 
 # masked_intersect (B, N, W): ragged edges in every dimension (the sweeps
 # of tests/test_kernels.py among them), then the main path's call shape
@@ -903,26 +981,35 @@ def phase_profile(comp, want) -> float:
 
 
 def check_no_host_read(eng, tag: str) -> None:
-    """One macro-step of ``eng`` (``steps_per_sync`` = T > 1) enqueued
-    under CUDA sync debug mode "error": a host read between two of its
-    inner steps (``.item()``, ``.tolist()``, ``.cpu()``, ``nonzero``, a
-    mask index) raises there.  The run's own stats read comes after."""
+    """One macro-step of ``eng`` (an ``Engine`` or a ``ShardedEngine`` at
+    ``steps_per_sync`` = T > 1: every shard's inner steps, the exchanges
+    and the votes) enqueued under CUDA sync debug mode "error": a host
+    read between two of its inner steps (``.item()``, ``.tolist()``,
+    ``.cpu()``, ``nonzero``, a mask index) raises there.  The run's own
+    stats read comes after."""
     import torch
     st = eng.start()
+    if hasattr(st, "vpqs"):          # a ShardedEngine's state
+        queues = st.vpqs
+        args = (st, eng.T, any(len(v) for v in queues))
+        what = f" x {eng.shards} shards (K={eng.K})"
+    else:
+        queues, what = [st.vpq], ""
+        args = (st.pool_states, st.pool_prio, st.pool_ub, st.result_states,
+                st.result_keys, eng.T, len(st.vpq) > 0)
     torch.cuda.synchronize()
     try:
         torch.cuda.set_sync_debug_mode("error")
-        eng._macro_impl(st.pool_states, st.pool_prio, st.pool_ub,
-                        st.result_states, st.result_keys, eng.T,
-                        len(st.vpq) > 0)
+        eng._macro_impl(*args)
     except RuntimeError as err:
         fail(f"{tag}: a macro-step reads the device from the host: {err}")
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    st.vpq.close()
-    print(f"[{tag}] one macro-step of {eng.T} inner steps enqueued with no "
-          f"host read (sync debug mode 'error')")
+    for q in queues:
+        q.close()
+    print(f"[{tag}] one macro-step of {eng.T} inner steps{what} enqueued "
+          f"with no host read (sync debug mode 'error')")
 
 
 def span_ms(obs, steps: int) -> dict:
@@ -1006,30 +1093,21 @@ def phase_sharded(comp, want, env: dict) -> dict:
     lists, spans and peak memory; the last shard count once more under
     ``torch.profiler``.  Then the skewed case on ``cuda`` and
     ``cpu``: equal bytes, and the reference's counters and per-shard
-    lists.  Returns the launches by path."""
-    import torch
+    lists.  Returns the launches by path and the results by shard
+    count."""
     from repro_torch.core import graph as graph_mod
     from repro_torch.core.clique import make_clique_computation
     from repro_torch.core.engine import EngineConfig
     from repro_torch.data import synthetic_graphs
     from repro_torch.distributed import ShardedEngine
-    from repro_torch.kernels import masked_intersect as mi
     from repro_torch.obs import Observability
 
     card = env["smi"]
-    launches = {}
+    launches, results = {}, {}
     for shards in SHARDED_FULL:
         obs = Observability()
-        eng = ShardedEngine(comp, EngineConfig(
-            **FULL_ENGINE, shards=shards, observe=True, observability=obs))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mi.reset_launches()
-        t0 = time.perf_counter()
-        res = eng.run()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        n = mi.launches
+        res, wall_s, n, peak = sharded_run(
+            comp, dict(FULL_ENGINE, shards=shards), obs)
         tag = f"12 sharded x{shards}"
         same_run(f"phase 12 (x{shards}) against phase 4", res, want, ())
         if n != res.steps * shards:
@@ -1043,12 +1121,12 @@ def phase_sharded(comp, want, env: dict) -> dict:
               f"phase 4 byte for byte; {counters} "
               f"rebalanced={res.rebalanced} wall={wall_s:.3f}s "
               f"ms_per_step={1e3 * wall_s / res.steps:.3f} "
-              f"masked_intersect_launches={n} "
-              f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB "
+              f"masked_intersect_launches={n} peak_mem={peak:.2f}GiB "
               f"({card})")
         print(f"[{tag}] per_shard={res.per_shard}")
         print(f"[{tag}] ms per step by span: {span_ms(obs, res.steps)}")
         launches[f"clique x{shards} T=1"] = n
+        results[shards] = res
 
     # the most shards once more under torch.profiler: idle share, the
     # kernels that take the device time, launches counted in the trace
@@ -1085,6 +1163,214 @@ def phase_sharded(comp, want, env: dict) -> dict:
     print(f"[12 sharded] skewed x2: cuda == cpu byte for byte == "
           f"reference, keys {keys}, counters {got}, per_shard "
           f"{cu.per_shard}")
+    return launches, results
+
+
+def sharded_run(comp, cfg: dict, obs=None):
+    """One ``ShardedEngine(comp, EngineConfig(**cfg)).run()`` on the card,
+    its peak memory its own: (result, wall s, ``masked_intersect``
+    launches, peak GiB)."""
+    import torch
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.distributed import ShardedEngine
+    from repro_torch.kernels import masked_intersect as mi
+    eng = ShardedEngine(comp, EngineConfig(
+        **cfg, observe=obs is not None, observability=obs))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mi.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    return res, wall_s, mi.launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def check_macro_launches(tag: str, res, launches: int, shards: int,
+                         T: int, K: int) -> int:
+    """A macro-step enqueues ``t_cap`` = T inner steps (no budget cuts
+    these runs), each one ``masked_intersect`` launch a shard, and runs
+    one exchange a segment begun: launches must be ``shards x T x
+    host_syncs`` and ``syncs`` ``ceil(steps / K)``.  Returns the no-op
+    inner steps."""
+    enqueued = T * res.host_syncs
+    if launches != shards * enqueued:
+        fail(f"{tag}: {launches} masked_intersect launches, {shards} shards "
+             f"x {enqueued} enqueued inner steps")
+    if res.syncs != -(-res.steps // K):
+        fail(f"{tag}: syncs {res.syncs} in {res.steps} steps at K={K}")
+    return enqueued - res.steps
+
+
+def sharded_child(spec: dict) -> int:
+    """``--sharded-run '<json>'``: phase 4's cell through ``ShardedEngine``
+    at phase 4's config and the given fields (``shards``,
+    ``steps_per_sync``, ``sync_every``), alone in this process: one JSON
+    line of the wall, counters, launches, no-op inner steps, spans and
+    peak memory beside the card.  It fails unless the planted clique is
+    found."""
+    from repro_torch.core.clique import make_clique_computation
+    from repro_torch.data.synthetic_graphs import planted_clique_graph
+    from repro_torch.obs import Observability
+
+    comp = make_clique_computation(planted_clique_graph(**FULL_GRAPH),
+                                   device="cuda")
+    obs = Observability()
+    res, wall_s, launches, peak = sharded_run(comp, dict(FULL_ENGINE, **spec),
+                                              obs)
+    if int(res.result_keys[0]) != FULL_GRAPH["clique_size"]:
+        fail(f"--sharded-run {spec}: best clique size "
+             f"{int(res.result_keys[0])}")
+    T = max(1, spec.get("steps_per_sync", 1))
+    print("SHARDED " + json.dumps(dict(
+        spec=spec, card=nvidia_smi("name,power.limit"), wall_s=wall_s,
+        ms_per_step=1e3 * wall_s / res.steps,
+        counters={c: getattr(res, c) for c in COUNTERS + ("rebalanced",)},
+        launches=launches, no_op_steps=T * res.host_syncs - res.steps,
+        peak_gib=peak, spans=span_ms(obs, res.steps),
+        per_shard=res.per_shard)), flush=True)
+    return 0
+
+
+def phase_sharded_macro(comp, want, want12: dict, env: dict) -> dict:
+    """Phase 13: ``ShardedEngine`` in macro-steps with stale bounds.  (a)
+    phase 4's cell at ``SHARDED_MACRO`` (2 shards, K = 1 and 4) and, where
+    it is set, (b) ``SHARDED_MACRO_8``, T = ``MACRO_T``: phase 4's bytes,
+    launches ``shards x T x host_syncs``, ``syncs == ceil(steps/K)``; at
+    K = 1 phase 12's ``spilled`` and ``late_pruned`` and fewer host reads;
+    wall, ms a step, no-op inner steps, counters, ``per_shard``, spans and
+    peak memory; (b) once more under ``torch.profiler``.  (c) The
+    reference's stale-bound sweep: each (shards, K) row byte for byte the
+    port's single-device ``Engine``'s answer with the reference's
+    counters.  (d) The skewed case with bound traces on ``cuda`` and
+    ``cpu``: equal bytes, the reference's counters and per-shard lists,
+    the bound used never above the fresh one.  Returns the launches by
+    path."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core import graph as graph_mod
+    from repro_torch.core.clique import make_clique_computation
+    from repro_torch.core.engine import Engine, EngineConfig
+    from repro_torch.data import synthetic_graphs
+    from repro_torch.distributed import ShardedEngine
+    from repro_torch.obs import Observability
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    card = env["smi"]
+    check_no_host_read(ShardedEngine(comp, EngineConfig(
+        **FULL_ENGINE, shards=2, steps_per_sync=MACRO_T, sync_every=4)),
+        "13 stale")
+    launches = {}
+    cells = SHARDED_MACRO + ((SHARDED_MACRO_8,) if SHARDED_MACRO_8 else ())
+    for shards, K in cells:
+        cfg = dict(FULL_ENGINE, shards=shards, steps_per_sync=MACRO_T,
+                   sync_every=K)
+        obs = Observability()
+        res, wall_s, n, peak = sharded_run(comp, cfg, obs)
+        tag = f"13 stale x{shards} K={K}"
+        same_run(f"phase 13 (x{shards}, K={K}) against phase 4", res, want,
+                 ())
+        no_op = check_macro_launches(tag, res, n, shards, MACRO_T, K)
+        counters = {name: getattr(res, name)
+                    for name in COUNTERS + ("rebalanced",)}
+        w12 = want12.get(shards)
+        if K == 1 and w12 is not None:
+            if not res.host_syncs < w12.host_syncs:
+                fail(f"{tag}: host_syncs {res.host_syncs}, phase 12's "
+                     f"{w12.host_syncs}")
+            same_run(f"{tag} against phase 12", res, w12,
+                     ("spilled", "late_pruned"))
+        print(f"[{tag}] T={MACRO_T}: keys={[int(x) for x in res.result_keys]}"
+              f" equal to phase 4 byte for byte; {counters} wall={wall_s:.3f}s"
+              f" ms_per_step={1e3 * wall_s / res.steps:.3f} "
+              f"masked_intersect_launches={n} no_op_inner_steps={no_op} "
+              f"(launches - shards x steps = {n - shards * res.steps}) "
+              f"peak_mem={peak:.2f}GiB ({card})")
+        if w12 is not None:
+            print(f"[{tag}] phase 12 (x{shards}, T=1): "
+                  f"{ {c: getattr(w12, c) for c in counters} }")
+        print(f"[{tag}] per_shard={res.per_shard}")
+        print(f"[{tag}] ms per step by span: {span_ms(obs, res.steps)}")
+        launches[f"clique x{shards} T={MACRO_T} K={K}"] = n
+    if SHARDED_MACRO_8:
+        prof_res, wall_s, busy_s, by_name, counts = profiled_run(
+            ShardedEngine(comp, EngineConfig(**cfg)))
+        same_run(f"phase 13's profiled rerun (x{shards}, K={K})", prof_res,
+                 res, COUNTERS + ("rebalanced",))
+        traced = kernel_launches(counts, MI_KERNEL)
+        print(f"[{tag}] profiled rerun: wall={wall_s:.3f}s (profiler on) "
+              f"device_busy={busy_s:.3f}s "
+              f"idle_share={1 - busy_s / wall_s:.3f} steps={res.steps} "
+              f"{MI_KERNEL} launches in the trace={traced}")
+        print_top(by_name, res.steps)
+        if traced != n:
+            fail(f"{tag}: the trace shows {traced} {MI_KERNEL} launches, "
+                 f"the run {n}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the reference's stale-bound sweep at its own size
+    t0 = time.perf_counter()
+    stale_comp = make_clique_computation(
+        synthetic_graphs.decoy_trap_graph(**STALE_GRAPH), device="cuda")
+    base = Engine(stale_comp, EngineConfig(**STALE_CFG)).run()
+    if [int(x) for x in base.result_keys] != STALE_KEYS:
+        fail(f"stale sweep: Engine's keys {list(base.result_keys)}, "
+             f"reference {STALE_KEYS}")
+    print(f"[13 stale sweep] decoy_trap_graph{tuple(STALE_GRAPH.values())} "
+          f"Engine(T={STALE_CFG['steps_per_sync']}): keys {STALE_KEYS}, "
+          f"{base.steps} steps (set-up and run "
+          f"{time.perf_counter() - t0:.2f}s)")
+    for shards in STALE_SHARDS:
+        for K in STALE_KS:
+            res, wall_s, n, peak = sharded_run(
+                stale_comp, dict(STALE_CFG, shards=shards, sync_every=K))
+            tag = f"13 stale sweep x{shards} K={K}"
+            same_run(f"{tag} against the port's Engine", res, base, ())
+            got = {c: getattr(res, c) for c in STALE_WANT[shards, K]}
+            if got != STALE_WANT[shards, K]:
+                fail(f"{tag}: {got}, reference {STALE_WANT[shards, K]}")
+            no_op = check_macro_launches(tag, res, n, shards,
+                                         STALE_CFG["steps_per_sync"], K)
+            print(f"[{tag}] equal to Engine byte for byte, the reference's "
+                  f"counters {got}; wall={wall_s:.3f}s "
+                  f"ms_per_step={1e3 * wall_s / res.steps:.3f} "
+                  f"masked_intersect_launches={n} no_op_inner_steps={no_op} "
+                  f"peak_mem={peak:.3f}GiB")
+            launches[f"stale sweep x{shards} K={K}"] = n
+    del stale_comp
+
+    # (d) the skewed case with bound traces, cuda against cpu
+    res = {}
+    for device in ("cuda", "cpu"):
+        g = skewed_graph(synthetic_graphs, graph_mod.GraphStore)
+        res[device] = ShardedEngine(
+            make_clique_computation(g, device=device),
+            EngineConfig(**SKEWED_CFG, **SKEWED_MACRO)).run()
+    cu = res["cuda"]
+    same_run("skewed x2 T=4 K=2 cuda against cpu", cu, res["cpu"],
+             COUNTERS + ("rebalanced",))
+    got = {name: getattr(cu, name) for name in SKEWED_MACRO_WANT}
+    keys = [int(x) for x in cu.result_keys]
+    if got != SKEWED_MACRO_WANT or keys != SKEWED_KEYS or \
+            cu.per_shard != SKEWED_MACRO_PER_SHARD or \
+            res["cpu"].per_shard != SKEWED_MACRO_PER_SHARD:
+        fail(f"skewed x2 T=4 K=2: counters {got} keys {keys} per_shard "
+             f"{cu.per_shard}, reference {SKEWED_MACRO_WANT} keys "
+             f"{SKEWED_KEYS} per_shard {SKEWED_MACRO_PER_SHARD}")
+    used = np.asarray(cu.per_shard["bound_used"])
+    fresh = np.asarray(cu.per_shard["bound_fresh"])
+    if used.shape != (2, cu.steps) or not (used <= fresh).all():
+        fail(f"skewed x2 T=4 K=2: bound traces {used.tolist()} used, "
+             f"{fresh.tolist()} fresh")
+    print(f"[13 stale] skewed x2 T=4 K=2 with bound traces: cuda == cpu "
+          f"byte for byte == reference, keys {keys}, counters {got}, "
+          f"per_shard {cu.per_shard}; used <= fresh at every step")
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2373,6 +2659,8 @@ def main() -> int:
 
     if len(sys.argv) == 3 and sys.argv[1] == "--durable-child":
         return durable_child(json.loads(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--sharded-run":
+        return sharded_child(json.loads(sys.argv[2]))
     env = phase_environment()
     kernel = phase_kernels(env)
     ragged = phase_coworkload_kernels()
@@ -2382,7 +2670,11 @@ def main() -> int:
     cowork = phase_coworkload(planted_clique_graph(**FULL_GRAPH), ragged)
     phase_merge_topk()
     macro_launches, res8 = phase_macro_path(comp, res, idle_t1)
-    sharded_launches = phase_sharded(comp, res, env)
+    sharded_launches, sharded12 = phase_sharded(comp, res, env)
+    t13 = time.perf_counter()
+    stale_launches = phase_sharded_macro(comp, res, sharded12, env)
+    print(f"[13] phase 13 wall={time.perf_counter() - t13:.1f}s")
+    del sharded12
     described = [comp.describe(row) for key, row in
                  zip(res.result_keys, res.result_states) if key > -2 ** 31]
     del comp
@@ -2408,7 +2700,7 @@ def main() -> int:
             "clique T=1": launches, f"clique T={MACRO_T}": macro_launches,
             **{f"iso T={t}": n for t, n in iso["launches_by_t"].items()},
             **pattern_launches, **durable_launches, **service_launches,
-            **sharded_launches})]
+            **sharded_launches, **stale_launches})]
     for name, line in (("segment_matmul", 59), ("embedding_bag", 46),
                        ("flash_attention", 84)):
         # the fp32 record first; a bf16 one beside it where both run

@@ -81,9 +81,7 @@ class EngineConfig:
     carried across.  :class:`Engine` runs one device at any
     ``steps_per_sync`` and, as the reference's does, does not read
     ``shards``, ``sync_every``, ``record_bound_trace`` or ``use_pallas``;
-    ``repro_torch.distributed.ShardedEngine`` reads the first three and
-    raises ``NotImplementedError`` for what it does not run yet, naming the
-    ROADMAP item that brings it."""
+    ``repro_torch.distributed.ShardedEngine`` reads the first three."""
     k: int = 1                    # result set size
     batch: int = 64               # B: states dequeued per super-step
     pool_capacity: int = 4096     # C: device-resident priority pool slots
@@ -94,8 +92,8 @@ class EngineConfig:
     shards: int = 1               # ShardedEngine's shard count
     steps_per_sync: int = 1       # T: super-steps per host read
     overflow_accum: Optional[int] = None   # macro-step accumulator rows
-    sync_every: int = 1           # stale bound exchange: item 12b
-    record_bound_trace: bool = False       # sharded test hook: item 12b
+    sync_every: int = 1           # K: inner steps per bound exchange
+    record_bound_trace: bool = False       # sharded test hook: bound traces
     checkpoint_every: int = 0     # durable runs: Engine.run saves every N
     checkpoint_dir: Optional[str] = None
     use_pallas: bool = False      # the kernel follows the device (item 3)
@@ -209,6 +207,18 @@ def sharded_bound(result_states: torch.Tensor, result_keys: torch.Tensor,
     key into two shards' result sets; counted twice, it would tighten the
     threshold past the true k-th best and prune true results."""
     return merge_topk(result_states, result_keys, k)[1][k - 1]
+
+
+def stale_bound(last_exchanged: torch.Tensor, result_keys: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """The bound a shard prunes with between two exchanges (the reference's
+    ``make_stale_bound_sync``, DESIGN.md §14): the larger of the last
+    exchanged bound and the shard's own k-th key (``NEG``, the least
+    int32, in an empty slot).  Both are lower bounds on the fresh
+    exchange's value — result sets only improve, and one shard's rows are
+    a subset of all — so pruning with it is at worst looser, never
+    unsound, and complete runs keep their answer at any ``sync_every``."""
+    return torch.maximum(last_exchanged, result_keys[k - 1])
 
 
 class Engine:
@@ -382,8 +392,9 @@ class Engine:
     def _macro_impl(self, pool_states, pool_prio, pool_ub, result_states,
                     result_keys, t_max: int, vpq_nonempty: bool):
         """Up to ``t_max`` fused super-steps with no host read between them
-        (the reference's DESIGN.md §13).  Only the ``sync_every = 1`` form
-        is ported (``_macro_segmented`` is ROADMAP Queue 1, item 12b)."""
+        (the reference's DESIGN.md §13).  One device has no bound to
+        exchange, so this is the reference's ``_macro_flat``;
+        ``ShardedEngine._macro_impl`` is its ``_macro_segmented``."""
         return self._macro_flat(pool_states, pool_prio, pool_ub,
                                 result_states, result_keys, t_max,
                                 vpq_nonempty)

@@ -1,9 +1,9 @@
-"""Sharded discovery engine (the reference's DESIGN.md §11), on PyTorch.
+"""Sharded discovery engine (the reference's DESIGN.md §11, §13, §14), on
+PyTorch.
 
-The port of ``repro.distributed.sharded_engine`` at one super-step a host
-read (``steps_per_sync = 1``, ``sync_every = 1``).  One query's frontier
-is split over ``shards`` shards, each with its own device pool, result set
-and spill queue, that share one pruning bound:
+The port of ``repro.distributed.sharded_engine``.  One query's frontier is
+split over ``shards`` shards, each with its own device pool, result set and
+spill queue, that share one pruning bound:
 
 * **seed deal** — the initial frontier is dealt round-robin: shard ``i``
   gets seeds ``i, i + shards, ...``, ordered by priority with ties in
@@ -13,11 +13,23 @@ and spill queue, that share one pruning bound:
   (:meth:`Engine._dequeue_merge`) for every shard, then the bound exchange
   (:func:`~repro_torch.core.engine.sharded_bound`: the k-th best key over
   every shard's result rows, duplicates counted once), then steps 3-5
-  (:meth:`Engine._expand_insert`) for every shard against that one bound,
-  then one host read of every shard's stats.  So ``masked_intersect``
-  launches once per shard per step, for a shard with an empty pool too,
-  as in the reference's ``shard_map`` body; ``syncs`` and ``host_syncs``
-  grow by one a step;
+  (:meth:`Engine._expand_insert`) for every shard against that one bound.
+  So ``masked_intersect`` launches once per shard per step, for a shard
+  with an empty pool too, as in the reference's ``shard_map`` body;
+* **macro-steps** (``steps_per_sync = T > 1``, DESIGN.md §13) — one
+  :meth:`ShardedEngine.step` enqueues ``T`` super-steps with no host read
+  between them (:meth:`ShardedEngine._macro_impl`), each shard's overflow
+  landing in its own block of one accumulator at its own watermark, and
+  reads their stats once.  The reference's loop exit is one vote over
+  every shard; here it is a device flag ``active``, and the steps after it
+  run as exact no-ops, as in :meth:`Engine._macro_flat`;
+* **stale bounds** (``sync_every = K``, DESIGN.md §14) — the exchange
+  runs at the first step of every K (a segment head); in the steps
+  between, each shard prunes with
+  :func:`~repro_torch.core.engine.stale_bound` (the head's bound or its
+  own k-th key, whichever is larger), and the exit vote is taken once a
+  segment.  ``syncs`` counts the exchanges, ``ceil(steps / K)`` a call;
+  ``host_syncs`` counts the step() calls;
 * **per-shard spill** — each shard's overflow goes to its own
   :class:`~repro_torch.core.vpq.VirtualPriorityQueue`
   (``spill_dir/shard{i}`` on disk), only its valid prefix copied to the
@@ -28,16 +40,16 @@ and spill queue, that share one pruning bound:
 
 The pools and result sets keep the reference's global layout (``[shards·C,
 S]``, ``[shards·k, S]``); shard ``i`` works on its slice.  Answers, every
-``EngineResult`` counter and every ``per_shard`` list are the reference's,
-byte for byte, at any shard count.
+``EngineResult`` counter and every ``per_shard`` list (the bound traces of
+``record_bound_trace`` among them) are the reference's, byte for byte, at
+any shard count, ``steps_per_sync`` and ``sync_every``.
 
 Decisions that differ from the reference: the shard axis is a Python loop
 over slices of tensors on the computation's one device, so any ``shards >=
 1`` runs (the reference needs that many JAX devices and raises beyond
 them), and ``shard_map_compat`` has no counterpart.  ``shards < 1`` is a
-``ValueError``, as in the reference.  Macro-steps, ``sync_every > 1`` and
-``record_bound_trace`` (ROADMAP Queue 1, item 12b) and the sharded
-checkpoint (item 12c) raise ``NotImplementedError`` naming their item.
+``ValueError``, as in the reference.  The sharded checkpoint (ROADMAP
+Queue 1, item 12c) raises ``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
 
@@ -51,7 +63,8 @@ import torch
 
 from repro_torch.core.api import NEG, SubgraphComputation
 from repro_torch.core.engine import (_STAT_NAMES, Engine, EngineConfig,
-                                     EngineResult, merge_topk, sharded_bound)
+                                     EngineResult, merge_topk, sharded_bound,
+                                     stale_bound)
 from repro_torch.core.vpq import VirtualPriorityQueue
 
 
@@ -85,6 +98,10 @@ class ShardedEngineState:
     host_syncs: int = 0           # host-device round-trips taken so far
     threshold: int = int(NEG)
     done: bool = False            # every shard pool and queue drained
+    # record_bound_trace: one [shards, inner steps] array a macro-step of
+    # the bound each shard pruned with, and of the fresh exchange's value
+    bound_used: List[np.ndarray] = dataclasses.field(default_factory=list)
+    bound_fresh: List[np.ndarray] = dataclasses.field(default_factory=list)
 
 
 class ShardedEngine:
@@ -102,27 +119,29 @@ class ShardedEngine:
         if config.sync_every < 1:
             raise ValueError(
                 f"sync_every must be >= 1, got {config.sync_every}")
-        # the reference's inner step count: K clamped to the accumulator,
-        # steps_per_sync raised to a multiple of K, 2 under bound traces
+        # the reference's schedule: K clamped so that one segment's
+        # overflow blocks fit the accumulator, steps_per_sync raised to a
+        # multiple of K (every macro-step ends on a segment's end), and to
+        # 2 under bound traces (they ride the macro path only)
         blk = config.batch + max(config.max_children or 0, comp.num_actions)
         K = config.sync_every
         if config.overflow_accum:
             K = max(1, min(K, config.overflow_accum // blk))
+        self.K = K
         T = max(1, config.steps_per_sync)
         if K > 1:
             T = -(-max(T, K) // K) * K
         if config.record_bound_trace:
             T = max(T, 2)
-        if T > 1:
-            raise _not_ported("steps_per_sync > 1, sync_every > 1 or "
-                              "record_bound_trace under shards", "12b")
+        self.T = T
 
-        # the per-shard engine: the super-step's two halves, the insert
-        # and the per-shard shapes
+        # the per-shard engine: the super-step's two halves, the insert,
+        # the per-shard shapes and the accumulator's capacity
         self._eng = Engine(comp, dataclasses.replace(
-            config, shards=1, steps_per_sync=1, sync_every=1))
+            config, shards=1, steps_per_sync=T, sync_every=1))
         self.device = self._eng.device
         self.C, self.S, self.k = self._eng.C, self._eng.S, config.k
+        self._acc = None    # [shards, acc_cap + B + M] rows, at first use
 
         # observability: the inner engine's instance, so sharded and
         # per-shard telemetry land in one registry
@@ -192,44 +211,60 @@ class ShardedEngine:
             vpqs=vpqs, pool_occupancy=occ, candidates=int(n0))
 
     # ------------------------------------------------------------------ step
-    def _super_step(self, st: ShardedEngineState):
+    def _super_step(self, st: ShardedEngineState, active=None, stale=None,
+                    trace: bool = False):
         """One super-step of every shard, enqueued with no host read: steps
-        1-2 for each shard, the bound exchange over all their result rows,
-        steps 3-5 for each against that bound.  Updates the pools and
-        result sets in ``st``; returns each shard's overflow block and the
-        stats as one ``[shards, 6]`` int64 tensor."""
+        1-2 for each shard, the bound, steps 3-5 for each against it.
+        With ``stale`` None (a segment head, every step at ``sync_every =
+        1``) every shard prunes with the fresh exchange over all their
+        result rows; else (a segment's later step) shard ``i`` prunes with
+        :func:`stale_bound` of ``stale`` and its own k-th key.  ``active``
+        false makes the step a no-op (:meth:`Engine._step_impl`).  Updates
+        the pools and result sets in ``st``; returns each shard's overflow
+        block, the stats as one ``[shards, 6]`` int64 tensor, the fresh
+        exchange (None in a later step unless ``trace``) and each shard's
+        bound."""
         eng = self._eng
         heads = []
         for i in range(self.shards):
             p, r = self._slices(i)
             heads.append(eng._dequeue_merge(
                 st.pool_states[p], st.pool_prio[p], st.pool_ub[p],
-                st.result_states[r], st.result_keys[r]))
+                st.result_states[r], st.result_keys[r], active))
         st.result_states = torch.cat([h[3] for h in heads])
         st.result_keys = torch.cat([h[4] for h in heads])
-        threshold = sharded_bound(st.result_states, st.result_keys, self.k)
+        fresh = None
+        if stale is None or trace:
+            fresh = sharded_bound(st.result_states, st.result_keys, self.k)
+        bounds = ([fresh] * self.shards if stale is None else
+                  [stale_bound(stale, h[4], self.k) for h in heads])
         overflow, stats = [], []
-        for i, head in enumerate(heads):
-            ps, pp, pu, _, _, over, stat = eng._expand_insert(*head,
-                                                              threshold)
+        for i, (head, bound) in enumerate(zip(heads, bounds)):
+            ps, pp, pu, _, _, over, stat = eng._expand_insert(*head, bound,
+                                                              active)
             p, _ = self._slices(i)
             st.pool_states[p], st.pool_prio[p], st.pool_ub[p] = ps, pp, pu
             overflow.append(over)
             stats.append(stat)
-        return overflow, torch.stack(stats)
+        return overflow, torch.stack(stats), fresh, bounds
 
     def step(self, st: ShardedEngineState,
              max_inner: Optional[int] = None) -> ShardedEngineState:
-        """Advance every shard one super-step; spill, refill, rebalance.
-        ``max_inner`` is :meth:`Engine.step`'s cap on fused steps, which a
-        step of one super-step does not need.  Updates ``st`` in place and
-        returns it."""
+        """Advance every shard one super-step, or at ``steps_per_sync > 1``
+        one macro-step of up to ``min(T, max_inner)`` super-steps; then
+        spill, refill, rebalance.  ``max_inner`` caps the inner steps so
+        that a step budget cuts at the same step for any ``steps_per_sync``
+        and ``sync_every``.  Updates ``st`` in place and returns it."""
+        if self.T > 1:
+            t_cap = (self.T if max_inner is None
+                     else max(1, min(self.T, int(max_inner))))
+            return self._macro_step(st, t_cap)
         t0 = time.perf_counter() if self.obs.enabled else 0.0
         with self._span("engine.step"):
             # the launches are asynchronous: device time that the enqueue
             # does not cover lands in host_sync, where the stats read waits
             with self._span("engine.device_compute"):
-                overflow, stats = self._super_step(st)
+                overflow, stats, _, _ = self._super_step(st)
             with self._span("engine.host_sync"):
                 # each name -> one value a shard
                 stats = dict(zip(_STAT_NAMES, zip(*stats.tolist())))
@@ -240,27 +275,152 @@ class ShardedEngine:
             st.candidates += sum(stats["created"])
             st.pruned += sum(stats["pruned"])
             st.threshold = stats["threshold"][0]   # the same on every shard
-            occ = np.asarray(stats["pool_occupancy"], np.int64)
-
             with self._span("engine.spill"):
                 for vpq, block, n in zip(st.vpqs, overflow,
                                          stats["overflow"]):
                     if n:   # the valid rows lead the block; ship only those
                         vpq.maybe_push(*(x[:n].cpu().numpy() for x in block))
-            self._refill_rebalance(st, occ)
-        self._after_step(st, stats, t0)
+            self._refill_rebalance(
+                st, np.asarray(stats["pool_occupancy"], np.int64))
+        self._after_step(st, 1, 1, stats, t0)
         return st
 
-    def _after_step(self, st: ShardedEngineState, stats: dict,
-                    t0: float) -> None:
+    # ------------------------------------------------------------ macro-step
+    def _accumulator(self):
+        """The overflow accumulators ``(states, prio, ub)``, one block of
+        ``acc_cap`` rows plus one spare ``[B + M]`` block a shard
+        (:meth:`Engine._accumulator`'s layout, stacked).  Made once per
+        engine."""
+        if self._acc is None:
+            eng, dev = self._eng, self.device
+            shape = (self.shards, eng.acc_cap + eng.B + eng.M)
+            self._acc = (
+                torch.zeros(shape + (self.S,), dtype=torch.int32, device=dev),
+                torch.full(shape, NEG, dtype=torch.int32, device=dev),
+                torch.full(shape, NEG, dtype=torch.int32, device=dev))
+        return self._acc
+
+    def _cont_flag(self, vpq_nonempty: bool, t_max: int, t, w, occ):
+        """The reference's global exit vote (``_cont_flag`` with
+        ``any_reduce``), on the device, after a segment: go on while steps
+        remain, no shard needs the host — shard ``i`` does when its next
+        segment's ``K`` blocks might not fit (``w_i + K·(B+M) > acc_cap``),
+        or when it is below the ``C//2`` watermark while any queue held
+        work at entry or any accumulator holds some (the rebalancer can
+        move any shard's spill) — and some shard's pool is not empty."""
+        eng = self._eng
+        room = (w + self.K * (eng.B + eng.M)) <= eng.acc_cap
+        low = occ < (self.C // 2)
+        refillable = (w > 0).any() | vpq_nonempty
+        need_host = (~room | (low & refillable)).any()
+        return (t < t_max) & ~need_host & (occ > 0).any()
+
+    def _macro_impl(self, st: ShardedEngineState, t_max: int,
+                    vpq_nonempty: bool) -> torch.Tensor:
+        """``t_max`` super-steps of every shard enqueued with no host read:
+        the reference's ``_macro_segmented`` and, at ``sync_every = 1``
+        (every step a head, a vote after each), its ``_macro_flat``.
+
+        The schedule is static: step ``j`` is a segment head when ``j % K
+        == 0``; the vote is taken after a segment's last step (or
+        ``t_max``'s).  The first segment always runs, and a live segment
+        runs to its end for every shard (a drained shard's steps are
+        natural no-ops); after a vote to stop, ``active`` is false and
+        every step left is an exact no-op.  Each shard's overflow block
+        goes into its accumulator at its own watermark ``w_i``.  The
+        threshold reported is the last live head's exchange (gated by
+        ``active``, so a head after the exit does not move it), the
+        host's late-pruning cutoff.  Updates the pools and result sets in
+        ``st``; returns one int64 tensor, a row a shard: steps, expanded,
+        created, pruned, ``w_i``, occupancy, threshold, then under
+        ``record_bound_trace`` the ``T`` bounds used and the ``T`` fresh
+        exchanges (a step past the live ones reads ``NEG``)."""
+        eng, dev, shards, K = self._eng, self.device, self.shards, self.K
+        acc = self._accumulator()
+        trace = bool(self.cfg.record_bound_trace)
+        rows = torch.arange(eng.B + eng.M, device=dev)
+        active = torch.ones((), dtype=torch.bool, device=dev)
+        t = torch.zeros((), dtype=torch.int64, device=dev)
+        w = torch.zeros((shards,), dtype=torch.int64, device=dev)
+        sums = torch.zeros((shards, 3), dtype=torch.int64, device=dev)
+        stale = torch.full((), NEG, dtype=torch.int32, device=dev)
+        used = torch.full((shards, self.T), NEG, dtype=torch.int32,
+                          device=dev)
+        fresh_tr = used.clone()
+        for j in range(t_max):
+            head = j % K == 0
+            overflow, stats, fresh, bounds = self._super_step(
+                st, active, None if head else stale, trace)
+            if head:
+                stale = torch.where(active, fresh, stale)
+            for i, block in enumerate(overflow):
+                dst = w[i] + rows
+                for a, x in zip(acc, block):
+                    a[i].index_copy_(0, dst, x)
+            w = w + stats[:, 5]
+            sums = sums + stats[:, :3]
+            t = t + active
+            if trace:
+                used[:, j] = torch.stack(bounds)
+                fresh_tr[:, j] = fresh
+            if (j + 1) % K == 0 or j + 1 == t_max:
+                # a no-op step leaves occupancy as it was, so the last
+                # step's is the last live step's
+                active = active & self._cont_flag(vpq_nonempty, t_max, t, w,
+                                                  stats[:, 3])
+        cols = [t.expand(shards)[:, None], sums, w[:, None], stats[:, 3:4],
+                stale.long().expand(shards)[:, None]]
+        if trace:
+            cols += [used.long(), fresh_tr.long()]
+        return torch.cat(cols, dim=1)
+
+    def _macro_step(self, st: ShardedEngineState,
+                    t_cap: int) -> ShardedEngineState:
+        """One macro-step of up to ``t_cap`` super-steps and one host read;
+        then each shard's accumulator prefix to its queue, refill and
+        rebalance."""
+        t0 = time.perf_counter() if self.obs.enabled else 0.0
+        with self._span("engine.step"):
+            with self._span("engine.device_compute"):
+                out = self._macro_impl(st, t_cap,
+                                       any(len(v) for v in st.vpqs))
+            with self._span("engine.host_sync"):
+                out = np.asarray(out.tolist(), np.int64)
+            n = int(out[0, 0])            # one exit vote: every shard's
+            syncs = -(-n // self.K)       # one exchange a segment begun
+            st.steps += n
+            st.syncs += syncs
+            st.host_syncs += 1
+            stats = dict(expanded=out[:, 1], created=out[:, 2],
+                         pruned=out[:, 3])
+            st.expanded += int(stats["expanded"].sum())
+            st.candidates += int(stats["created"].sum())
+            st.pruned += int(stats["pruned"].sum())
+            st.threshold = int(out[0, 6])
+            if self.cfg.record_bound_trace:
+                T = self.T
+                st.bound_used.append(out[:, 7:7 + n])
+                st.bound_fresh.append(out[:, 7 + T:7 + T + n])
+            if out[:, 4].any():   # ship each shard's valid prefix
+                with self._span("engine.spill"):
+                    for i, (vpq, w) in enumerate(zip(st.vpqs, out[:, 4])):
+                        if w:
+                            vpq.maybe_push(*(a[i, :w].cpu().numpy()
+                                             for a in self._acc))
+            self._refill_rebalance(st, out[:, 5].copy())
+        self._after_step(st, n, syncs, stats, t0)
+        return st
+
+    def _after_step(self, st: ShardedEngineState, n_steps: int,
+                    n_syncs: int, stats: dict, t0: float) -> None:
         """Record one step() call's metrics (no-op handles when off)."""
         eng = self._eng
-        eng._m_steps.inc(1)
+        eng._m_steps.inc(n_steps)
         eng._m_host_syncs.inc()
-        self._m_syncs.inc(1)
-        eng._m_expanded.inc(sum(stats["expanded"]))
-        eng._m_candidates.inc(sum(stats["created"]))
-        eng._m_pruned.inc(sum(stats["pruned"]))
+        self._m_syncs.inc(n_syncs)
+        eng._m_expanded.inc(int(sum(stats["expanded"])))
+        eng._m_candidates.inc(int(sum(stats["created"])))
+        eng._m_pruned.inc(int(sum(stats["pruned"])))
         eng._g_occupancy.set(int(st.pool_occupancy.sum()))
         eng._g_threshold.set(st.threshold)
         if self.obs.enabled:
@@ -359,6 +519,13 @@ class ShardedEngine:
             late_pruned=[int(v.total_late_pruned) for v in st.vpqs],
             vpq_backlog=[len(v) for v in st.vpqs],
             pool_occupancy=[int(x) for x in st.pool_occupancy])
+        if self.cfg.record_bound_trace:
+            # [shards, inner steps] traces as one list of ints a shard
+            for name in ("bound_used", "bound_fresh"):
+                parts = getattr(st, name)
+                trace = (np.concatenate(parts, axis=1) if parts
+                         else np.zeros((self.shards, 0), np.int64))
+                per_shard[name] = [[int(x) for x in row] for row in trace]
         for v in st.vpqs:
             v.close()
         return EngineResult(
@@ -391,7 +558,7 @@ class ShardedEngine:
                               "12c")
         st = self.start()
         while not st.done and st.steps < self.cfg.max_steps:
-            self.step(st)
+            self.step(st, max_inner=self.cfg.max_steps - st.steps)
             if progress_every and st.steps % progress_every == 0:
                 print(f"[{self.comp.name}/x{self.shards}] step={st.steps} "
                       f"occ={st.pool_occupancy.tolist()} "

@@ -1,12 +1,18 @@
 """The port's sharded engine (``repro_torch.distributed``) on the CPU against
 the reference's ``ShardedEngine``: byte for byte on result_keys /
-result_states and on the pools and result sets after every step (the
-global layout item 12c's checkpoint will save), equal on every
+result_states and on the pools and result sets after every step or
+macro-step (the global layout item 12c's checkpoint will save), with the
+threshold and the pool occupancies the host holds there, equal on every
 ``EngineResult`` counter and every ``per_shard`` list —
 tests/test_distributed_engine.py's clique and iso cases at 1, 2 and 8
 shards, its skewed case (spill, refill, rebalance, late pruning) at 2 and
 8 with host and disk spill, and seeded random small configs (k, B, C,
-``max_children``, ``max_steps`` truncation, odd shard counts).
+``max_children``, ``max_steps`` truncation, odd shard counts); then the
+same in macro-steps (``steps_per_sync``) with stale bounds
+(``sync_every``): the skewed case with bound traces, clique, iso, and
+random configs with the least ``overflow_accum`` (K clamped, the vote on a
+full accumulator).  tests/test_torch_stale.py holds the reference's
+tests/test_stale_bound.py matrices.
 
 The reference needs one JAX device a shard, so its runs take one
 subprocess of this file under
@@ -16,7 +22,7 @@ each case's result to a temporary directory; the port runs each case in
 the test process.  Also here: ``sharded_bound`` against the reference's
 collective, ``shards=1`` against the port's ``Engine``, one scoring call a
 shard a step, the disk spill's ``shard{i}`` directories left empty, and the
-guards that name ROADMAP items 12b and 12c.
+guards that name ROADMAP item 12c.
 """
 import dataclasses
 import hashlib
@@ -56,6 +62,7 @@ TRIANGLE = ([(0, 1), (1, 2), (0, 2)], [1, 1, 1])
 # tests/test_distributed_engine.py's skewed case: a 12-clique on the even
 # vertices 0-22 of densifying_graph(96, 500, seed=3), tiny pools
 SKEWED_CFG = dict(k=3, batch=8, pool_capacity=64, max_steps=50_000)
+SKEWED_MACRO = dict(steps_per_sync=4, sync_every=2, record_bound_trace=True)
 
 
 def _cases() -> dict:
@@ -74,6 +81,20 @@ def _cases() -> dict:
         for spill in ("host", "disk"):
             cases[f"skewed-{spill}-x{s}"] = dict(
                 graph="skewed", shards=s, cfg=dict(SKEWED_CFG, spill=spill))
+    # macro-steps and stale bounds; the first is chip_smoke.py's phase 13d
+    cases["skewed-host-x2-T4-K2-trace"] = dict(
+        graph="skewed", shards=2, cfg=dict(SKEWED_CFG, **SKEWED_MACRO))
+    cases["skewed-disk-x8-T16-K4"] = dict(
+        graph="skewed", shards=8,
+        cfg=dict(SKEWED_CFG, spill="disk", steps_per_sync=16, sync_every=4))
+    cases["clique-x8-T16"] = dict(
+        graph=("planted_clique_graph", (80, 300, 6, 1)), shards=8,
+        cfg=dict(k=3, batch=16, pool_capacity=512, max_steps=50_000,
+                 steps_per_sync=16))
+    cases["iso-x2-T4-K4"] = dict(
+        graph=("labeled_graph", (60, 150, 3, 5)), hops=2, shards=2,
+        cfg=dict(k=3, batch=16, pool_capacity=1024, max_steps=50_000,
+                 steps_per_sync=4, sync_every=4))
     rng = np.random.default_rng(2026)
     for j in range(5):
         n = int(rng.integers(40, 97))
@@ -90,6 +111,25 @@ def _cases() -> dict:
         cases[f"random{j}-x{shards}"] = dict(
             graph=("densifying_graph", (n, int(rng.integers(2 * n, 8 * n)),
                                         j)),
+            shards=shards, cfg=cfg)
+    # random macro configs: T, K, the least overflow_accum (one block: K
+    # clamps to 1, and the vote stops on a full accumulator) or none
+    rng = np.random.default_rng(2027)
+    for j in range(4):
+        n = int(rng.integers(40, 97))
+        batch = int(rng.choice([2, 4, 8]))
+        shards = int(rng.choice([2, 3, 8]))
+        cfg = dict(
+            k=int(rng.choice([1, 3, 5])), batch=batch,
+            pool_capacity=int(rng.integers(max(batch, 16), 129)),
+            max_steps=(50_000 if j % 2 == 0 else int(rng.integers(5, 30))),
+            spill=str(rng.choice(["host", "disk"])),
+            steps_per_sync=int(rng.choice([2, 3, 16])),
+            sync_every=int(rng.choice([1, 2, 3, 5])),
+            overflow_accum=(None if j < 2 else batch + n))
+        cases[f"macro{j}-x{shards}"] = dict(
+            graph=("densifying_graph", (n, int(rng.integers(2 * n, 8 * n)),
+                                        10 + j)),
             shards=shards, cfg=cfg)
     return cases
 
@@ -138,14 +178,16 @@ def _state_arrays(st) -> dict:
 
 
 def _drive(eng, max_steps: int):
-    """``run()``'s loop: (result, a digest of the pools and result sets
-    after the start and after each step, the final ones as numpy
-    arrays)."""
+    """``run()``'s loop: (result, a digest of the pools and result sets,
+    the threshold and the pool occupancies after the start and after each
+    step, the final arrays as numpy arrays)."""
     st = eng.start()
     digests = []
     while True:
+        held = repr((int(st.threshold), st.pool_occupancy.tolist()))
         digests.append(hashlib.sha1(b"".join(
-            a.tobytes() for a in _state_arrays(st).values())).hexdigest())
+            a.tobytes() for a in _state_arrays(st).values())
+            + held.encode()).hexdigest())
         if st.done or st.steps >= max_steps:
             break
         eng.step(st, max_inner=max_steps - st.steps)
@@ -242,11 +284,34 @@ def test_skewed_case_exercises_every_host_path(reference):
     assert reference["skewed-disk-x2"][0] == counters
 
 
+def test_skewed_macro_case_with_bound_traces(reference):
+    """The skewed case at T = 4, K = 2 with bound traces (chip_smoke.py's
+    phase 13d holds the card to this table): 10 exchanges in 20 steps, 6
+    host reads, the used bound below the fresh one on shard 1 at steps 6,
+    8 and 10 (segment tails)."""
+    counters, arrays = reference["skewed-host-x2-T4-K2-trace"]
+    assert list(arrays["final_keys"]) == [12, 11, 11]
+    assert {name: counters[name] for name in COUNTERS} == dict(
+        steps=20, candidates=673, expanded=135, pruned=131, spilled=437,
+        refilled=11, rebalanced=19, late_pruned=407, syncs=10, host_syncs=6)
+    fresh = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10] + [11] * 10
+    assert counters["per_shard"] == dict(
+        spilled=[359, 78], late_pruned=[340, 67], vpq_backlog=[0, 0],
+        pool_occupancy=[0, 0],
+        bound_used=[fresh, [1, 2, 3, 4, 5, 5, 7, 7, 9, 9] + [11] * 10],
+        bound_fresh=[fresh, fresh])
+
+
 def test_random_cases_cover_truncation_and_odd_shard_counts():
     cases = [c for name, c in CASES.items() if name.startswith("random")]
     assert any(c["cfg"]["max_steps"] < 50_000 for c in cases)
     assert any(c["shards"] not in (1, 2, 8) for c in cases)
     assert any(c["cfg"]["max_children"] is not None for c in cases)
+    macro = [c["cfg"] for name, c in CASES.items()
+             if name.startswith("macro")]
+    assert any(c["overflow_accum"] for c in macro)
+    assert any(c["max_steps"] < 50_000 for c in macro)
+    assert any(c["sync_every"] > 1 for c in macro)
 
 
 # ------------------------------------------------------- the bound exchange
@@ -351,14 +416,6 @@ def test_every_shard_scores_every_step():
 
 
 # ------------------------------------------------------------------ guards
-@pytest.mark.parametrize("fields", [
-    dict(steps_per_sync=2), dict(sync_every=2), dict(record_bound_trace=True)])
-def test_macro_steps_and_stale_bounds_name_item_12b(fields):
-    cfg = engine.EngineConfig(k=3, shards=2, **fields)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ShardedEngine(_clique_comp(), cfg)
-
-
 @pytest.mark.parametrize("call", ["save_checkpoint", "resume", "run_every",
                                   "run_resume"])
 def test_sharded_checkpoint_names_item_12c(call, tmp_path):
