@@ -8,8 +8,9 @@ kernel against its plain PyTorch version on the card, drives the port's
 paths — single-device maximum-clique discovery one super-step a host read
 and in macro-steps, the same over 2 and 8 shards, in macro-steps with
 stale bounds too, labeled subgraph
-isomorphism, top-k pattern mining, durable runs killed and resumed, the
-discovery service and its JSONL serve loop, and the co-workload path from
+isomorphism, top-k pattern mining, durable runs killed and resumed (on
+one device and sharded), the discovery service and its JSONL serve loop
+(sharded requests among them), and the co-workload path from
 the data pipeline through the float kernels — at full width, and prints
 where the time went.  Phases, one line
 each (plus detail):
@@ -135,7 +136,8 @@ each (plus detail):
    ``--device cpu`` over one JSONL file of the demo graphs (clique and
    its cache hit, weighted clique, iso and pattern with ``use_pallas``,
    a label predicate, malformed lines, ``shards: 2``, a metrics
-   command): equal response lines, the wall-clock fields aside;
+   command): equal response lines, the wall-clock fields aside, the
+   ``shards: 2`` line answered with the one-shard clique answer;
 12. the sharded engine (``repro_torch.distributed.ShardedEngine``, T = 1),
    run right after phase 8 on phase 4's computation: phase 4's cell at 2
    and 8 shards must give phase 4's ``result_keys`` and ``result_states``
@@ -167,7 +169,31 @@ each (plus detail):
    the reference's, and its wall; (d) the skewed case at 2 shards, T = 4,
    K = 2 with ``record_bound_trace`` on ``cuda`` and ``cpu``: equal
    bytes, the reference's counters and ``per_shard`` lists (the bound
-   traces among them), the bound used never above the fresh one.
+   traces among them), the bound used never above the fresh one;
+14. the sharded checkpoint and the service's sharded path, after phase
+   11.  (a) Phase 4's cell at 8 shards, T = 1, the disk spill and
+   ``checkpoint_every=64``, in this process: phase 12's 8-shard result
+   byte for byte with every counter and ``per_shard`` list; the saves,
+   bytes, ``checkpoint.save`` time on the engine's thread, commit time,
+   and the wall beside phase 12's.  (b) After the cached blocks are
+   released (the free memory printed), two ``--durable-child``
+   subprocesses at once: 8 shards, T = 1, SIGKILLed at the first host
+   read past step 150, and 2 shards, T = 16, K = 4, SIGKILLed inside the
+   second commit; each resumed in a second subprocess must equal phase
+   12's 8-shard or phase 13a's K = 4 result with every counter and
+   ``per_shard`` list, leave no ``.tmp`` dir and no file in any
+   ``shard{i}`` spill dir, and launch ``masked_intersect`` exactly
+   ``shards x T x`` its host reads.  (c) One
+   ``DiscoveryService(device="cuda")`` batch: phase 4's clique request at
+   2 shards (phase 12's answer and stats), the same at T = 16, K = 4
+   (phase 13a's), and the 2-shard request cut at 100 steps with
+   checkpoints every 32, then resumed with the full budget in a second
+   call (phase 12's answer and steps); each request's latency and
+   ``masked_intersect`` launches, and peak memory.  Its wall is printed
+   as ``[14] phase 14 wall=``.
+
+Each profiled rerun prints the seconds the profiler takes after the run
+(its stop and the read of the device intervals from its events).
 
 ``python3 chip_smoke.py --sharded-run '<json>'`` runs phase 4's cell
 through ``ShardedEngine`` at the given fields alone and prints one JSON
@@ -181,7 +207,8 @@ with phase 9's launches, at the pattern probe's shapes under
 ``pattern_probes`` (the row kernel's times, the tile's beside them), the
 cut-over sweep under ``cutover`` with the plan's ``rows_max_cols``, and
 the launches of each discovery path under ``launches_by_path``, phase
-11's durable and service paths and phases 12's and 13's runs among them),
+11's durable and service paths, phases 12's and 13's runs and phase
+14's durable and service paths among them),
 after a line with the whole
 run's wall; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
@@ -905,35 +932,54 @@ def phase_main_path() -> int:
     return launches, comp, res, wall_s
 
 
-def device_busy(trace_path: str):
-    """Device time from a profiler trace: the union of kernel, copy and
-    set intervals (s), the summed time of each kernel name (ms), and the
-    number of launches of each kernel name (the full name)."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
+def device_activity(e):
+    """The chrome trace's category of one profiler event on the device
+    (``kernel``, ``gpu_memcpy``, ``gpu_memset``), or None for an event on
+    the host or a user annotation.  Copies and sets are told by the names
+    the profiler gives them ("Memcpy HtoD (Pageable -> Device)", "Memset
+    (Device)"); the events carry no category in every torch release."""
+    from torch.autograd import DeviceType
+    if e.device_type() != DeviceType.CUDA or \
+            getattr(e, "is_user_annotation", lambda: False)():
+        return None
+    name = e.name()
+    if name.startswith("Memcpy"):
+        return "gpu_memcpy"
+    return "gpu_memset" if name.startswith("Memset") else "kernel"
+
+
+def device_busy(prof):
+    """Device time from a finished profiler's events: the union of kernel,
+    copy and set intervals (s), the summed time of each kernel name (ms),
+    and the number of launches of each kernel name (the full name).  Read
+    from the profiler's own records, with no chrome-trace round trip
+    (``scripts/trace_ab.py`` holds the two to each other)."""
     spans, by_name, counts = [], {}, {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in (
-                "kernel", "gpu_memcpy", "gpu_memset"):
-            spans.append((e["ts"], e["ts"] + e["dur"]))
-            if e["cat"] == "kernel":
-                name = e["name"][:60]
-                by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
-                counts[e["name"]] = counts.get(e["name"], 0) + 1
-            else:
-                by_name[e["cat"]] = by_name.get(e["cat"], 0.0) + e["dur"] / 1e3
+    for e in prof.profiler.kineto_results.events():
+        cat = device_activity(e)
+        if cat is None:
+            continue
+        start, dur = e.start_ns() / 1e3, e.duration_ns() / 1e3     # us
+        spans.append((start, start + dur))
+        if cat == "kernel":
+            name = e.name()
+            by_name[name[:60]] = by_name.get(name[:60], 0.0) + dur / 1e3
+            counts[name] = counts.get(name, 0) + 1
+        else:
+            by_name[cat] = by_name.get(cat, 0.0) + dur / 1e3
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy / 1e6, by_name, counts        # trace times are in us
+    return busy / 1e6, by_name, counts
 
 
-def profiled_run(eng):
+def profiled_run(eng, tag: str):
     """``eng.run()`` under torch.profiler: (result, wall s, device busy s,
-    device ms by kernel name, launches by kernel name)."""
-    import tempfile
+    device ms by kernel name, launches by kernel name).  Prints the
+    seconds the profiler takes after the run (its stop and the read of the
+    device intervals), which no phase's timed run covers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -941,12 +987,11 @@ def profiled_run(eng):
         t0 = time.perf_counter()
         res = eng.run()
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = f"{tmp}/trace.json"
-        prof.export_chrome_trace(path)
-        busy_s, by_name, counts = device_busy(path)
-    return res, wall_s, busy_s, by_name, counts
+        t_end = time.perf_counter()
+    busy_s, by_name, counts = device_busy(prof)
+    print(f"[{tag}] profiled rerun: the profiler's stop and the trace's "
+          f"read took {time.perf_counter() - t_end:.2f}s after the run")
+    return res, t_end - t0, busy_s, by_name, counts
 
 
 def kernel_launches(counts: dict, stem: str) -> int:
@@ -967,7 +1012,7 @@ def phase_profile(comp, want) -> float:
     from repro_torch.core.engine import Engine, EngineConfig
 
     res, wall_s, busy_s, by_name, counts = profiled_run(
-        Engine(comp, EngineConfig(**FULL_ENGINE)))
+        Engine(comp, EngineConfig(**FULL_ENGINE)), "5 profile")
     if res.result_states.tobytes() != want.result_states.tobytes() or \
             res.steps != want.steps:
         fail("the profiled run differs from the main-path run")
@@ -1059,7 +1104,7 @@ def phase_macro_path(comp, want, idle_t1: float) -> dict:
     print(f"[8 macro] ms per step by span: {span_ms(obs, res.steps)}")
 
     prof_res, wall_s, busy_s, by_name, counts = profiled_run(
-        Engine(comp, EngineConfig(**cfg)))
+        Engine(comp, EngineConfig(**cfg)), "8 macro")
     same_run("phase 8's profiled rerun", prof_res, res)
     traced = kernel_launches(counts, MI_KERNEL)
     print(f"[8 macro] profiled rerun: wall={wall_s:.3f}s (profiler on) "
@@ -1093,8 +1138,8 @@ def phase_sharded(comp, want, env: dict) -> dict:
     lists, spans and peak memory; the last shard count once more under
     ``torch.profiler``.  Then the skewed case on ``cuda`` and
     ``cpu``: equal bytes, and the reference's counters and per-shard
-    lists.  Returns the launches by path and the results by shard
-    count."""
+    lists.  Returns the launches by path, and the results and walls by
+    shard count."""
     from repro_torch.core import graph as graph_mod
     from repro_torch.core.clique import make_clique_computation
     from repro_torch.core.engine import EngineConfig
@@ -1103,7 +1148,7 @@ def phase_sharded(comp, want, env: dict) -> dict:
     from repro_torch.obs import Observability
 
     card = env["smi"]
-    launches, results = {}, {}
+    launches, results, walls = {}, {}, {}
     for shards in SHARDED_FULL:
         obs = Observability()
         res, wall_s, n, peak = sharded_run(
@@ -1126,12 +1171,12 @@ def phase_sharded(comp, want, env: dict) -> dict:
         print(f"[{tag}] per_shard={res.per_shard}")
         print(f"[{tag}] ms per step by span: {span_ms(obs, res.steps)}")
         launches[f"clique x{shards} T=1"] = n
-        results[shards] = res
+        results[shards], walls[shards] = res, wall_s
 
     # the most shards once more under torch.profiler: idle share, the
     # kernels that take the device time, launches counted in the trace
     prof_res, wall_s, busy_s, by_name, counts = profiled_run(ShardedEngine(
-        comp, EngineConfig(**FULL_ENGINE, shards=shards)))
+        comp, EngineConfig(**FULL_ENGINE, shards=shards)), tag)
     same_run(f"phase 12's profiled rerun (x{shards})", prof_res, res,
              COUNTERS + ("rebalanced",))
     traced = kernel_launches(counts, MI_KERNEL)
@@ -1163,7 +1208,7 @@ def phase_sharded(comp, want, env: dict) -> dict:
     print(f"[12 sharded] skewed x2: cuda == cpu byte for byte == "
           f"reference, keys {keys}, counters {got}, per_shard "
           f"{cu.per_shard}")
-    return launches, results
+    return launches, results, walls
 
 
 def sharded_run(comp, cfg: dict, obs=None):
@@ -1245,7 +1290,7 @@ def phase_sharded_macro(comp, want, want12: dict, env: dict) -> dict:
     counters.  (d) The skewed case with bound traces on ``cuda`` and
     ``cpu``: equal bytes, the reference's counters and per-shard lists,
     the bound used never above the fresh one.  Returns the launches by
-    path."""
+    path and the results of (a) and (b) by ``(shards, K)``."""
     import gc
     import numpy as np
     import torch
@@ -1256,6 +1301,7 @@ def phase_sharded_macro(comp, want, want12: dict, env: dict) -> dict:
     from repro_torch.distributed import ShardedEngine
     from repro_torch.obs import Observability
 
+    t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1263,7 +1309,9 @@ def phase_sharded_macro(comp, want, want12: dict, env: dict) -> dict:
     check_no_host_read(ShardedEngine(comp, EngineConfig(
         **FULL_ENGINE, shards=2, steps_per_sync=MACRO_T, sync_every=4)),
         "13 stale")
-    launches = {}
+    print(f"[13 stale] set-up (the cache's release, the no-host-read "
+          f"check): {time.perf_counter() - t0:.2f}s")
+    launches, results = {}, {}
     cells = SHARDED_MACRO + ((SHARDED_MACRO_8,) if SHARDED_MACRO_8 else ())
     for shards, K in cells:
         cfg = dict(FULL_ENGINE, shards=shards, steps_per_sync=MACRO_T,
@@ -1295,9 +1343,10 @@ def phase_sharded_macro(comp, want, want12: dict, env: dict) -> dict:
         print(f"[{tag}] per_shard={res.per_shard}")
         print(f"[{tag}] ms per step by span: {span_ms(obs, res.steps)}")
         launches[f"clique x{shards} T={MACRO_T} K={K}"] = n
+        results[shards, K] = res
     if SHARDED_MACRO_8:
         prof_res, wall_s, busy_s, by_name, counts = profiled_run(
-            ShardedEngine(comp, EngineConfig(**cfg)))
+            ShardedEngine(comp, EngineConfig(**cfg)), tag)
         same_run(f"phase 13's profiled rerun (x{shards}, K={K})", prof_res,
                  res, COUNTERS + ("rebalanced",))
         traced = kernel_launches(counts, MI_KERNEL)
@@ -1371,7 +1420,7 @@ def phase_sharded_macro(comp, want, want12: dict, env: dict) -> dict:
           f"per_shard {cu.per_shard}; used <= fresh at every step")
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, results
 
 
 def induced_4g(g, seed: int):
@@ -1602,7 +1651,6 @@ def phase_patterns() -> dict:
     reference's answer and exactly its number of probes as
     ``masked_intersect`` launches, every one of them the row kernel.
     Returns the launches by cell."""
-    import tempfile
     import torch
     from repro_torch.core import patterns
     from repro_torch.core.aggregate import topk_frequent_patterns
@@ -1631,9 +1679,7 @@ def phase_patterns() -> dict:
             launches[cell], reads = mi.launches, patterns.reads
             by_variant = dict(mi.launches_by_variant)
         peak = torch.cuda.max_memory_allocated()
-        with tempfile.TemporaryDirectory() as tmp:
-            prof.export_chrome_trace(f"{tmp}/trace.json")
-            busy_s, by_name, counts = device_busy(f"{tmp}/trace.json")
+        busy_s, by_name, counts = device_busy(prof)
         kernel_ms = sum(ms for name, ms in by_name.items()
                         if MI_KERNEL in name)
         traced = kernel_launches(counts, MI_KERNEL)
@@ -2193,8 +2239,18 @@ DURABLE_EVERY = 64           # checkpoint_every of the kill-and-resume runs
 DURABLE_KILL_STEP = 150      # T = 1: SIGKILL at the first host read past it
 DURABLE_KILL_COMMIT = 2      # T = MACRO_T: SIGKILL inside the 2nd commit
 CHILD_TIMEOUT_S = 300
-# the service's truncated, checkpointed clique request (then resumed)
+# the service's clique request: phase 4's config; cut and checkpointed,
+# then resumed
+SERVICE_CLIQUE = dict(k=FULL_ENGINE["k"], batch=FULL_ENGINE["batch"],
+                      pool_capacity=FULL_ENGINE["pool_capacity"])
 SERVICE_TRUNCATED = dict(step_budget=100, checkpoint_every=32)
+# phase 14: the sharded checkpoint on phase 4's cell, (a) in this process
+# and (b) killed and resumed in children, at SHARDED_DURABLE shards (T = 1)
+# and SHARDED_DURABLE_MACRO (shards, K) at T = MACRO_T (8 shards there
+# would add ~40 GiB of accumulator beside the other child); (c) the
+# service at the latter's shard count
+SHARDED_DURABLE = 8
+SHARDED_DURABLE_MACRO = (2, 4)
 # the serve CLI's request file (the demo graphs of repro_torch.launch.serve)
 CLI_REQUESTS = [
     {"graph": "demo-social", "workload": "clique", "k": 3,
@@ -2224,27 +2280,33 @@ CLI_REQUESTS = [
 
 def durable_engine(spec: dict, **cfg):
     """Phase 4's engine on the card with the disk spill and checkpoints
-    every ``DURABLE_EVERY`` steps, at ``spec["T"]`` steps a host read (and
-    any other ``EngineConfig`` field in ``cfg``)."""
+    every ``DURABLE_EVERY`` steps, at ``spec["T"]`` steps a host read: an
+    ``Engine``, or a ``ShardedEngine`` at ``spec["shards"]`` > 1 with
+    ``sync_every = spec["K"]`` (and any other ``EngineConfig`` field in
+    ``cfg``)."""
     from repro_torch.core.clique import make_clique_computation
     from repro_torch.core.engine import Engine, EngineConfig
     from repro_torch.data.synthetic_graphs import planted_clique_graph
+    from repro_torch.distributed import ShardedEngine
     comp = make_clique_computation(planted_clique_graph(**FULL_GRAPH),
                                    device="cuda")
-    return Engine(comp, EngineConfig(
+    config = EngineConfig(
         **dict(FULL_ENGINE, spill="disk"), spill_dir=spec["spill_dir"],
-        steps_per_sync=spec["T"], checkpoint_every=DURABLE_EVERY,
-        checkpoint_dir=spec["ckpt_dir"], **cfg))
+        shards=spec.get("shards", 1), steps_per_sync=spec["T"],
+        sync_every=spec.get("K", 1), checkpoint_every=DURABLE_EVERY,
+        checkpoint_dir=spec["ckpt_dir"], **cfg)
+    return (ShardedEngine if config.shards > 1 else Engine)(comp, config)
 
 
 def durable_child(spec: dict) -> int:
-    """``--durable-child '<json>'`` (phase 11a's subprocess): in mode
-    ``crash`` it arms a SIGKILL (at the first host read at or past
-    ``kill_at_step``, or inside commit number ``kill_in_commit``) and runs,
-    and must die there; in mode ``resume`` it continues from the newest
-    committed step, writes the result states to ``spec["result"]`` and
-    prints a ``DURABLE`` line with the keys, counters, the step resumed
-    from, the resumed run's wall and its ``masked_intersect`` launches."""
+    """``--durable-child '<json>'`` (the subprocess of phases 11a and
+    14b): in mode ``crash`` it arms a SIGKILL (at the first host read at
+    or past ``kill_at_step``, or inside commit number ``kill_in_commit``)
+    and runs, and must die there; in mode ``resume`` it continues from the
+    newest committed step, writes the result states to ``spec["result"]``
+    and prints a ``DURABLE`` line with the keys, counters, ``per_shard``
+    lists, the step and host reads resumed from, the resumed run's wall
+    and its ``masked_intersect`` launches."""
     import os
     import signal
     import numpy as np
@@ -2275,7 +2337,10 @@ def durable_child(spec: dict) -> int:
             CheckpointManager._commit = commit
         eng.run()
         fail("the durable child ran to its end past its kill point")
-    resumed_from = CheckpointManager(spec["ckpt_dir"]).latest_step()
+    mgr = CheckpointManager(spec["ckpt_dir"])
+    resumed_from = mgr.latest_step()
+    resumed_syncs = (None if resumed_from is None else
+                     mgr.read_manifest()["extra"]["scalars"]["host_syncs"])
     torch.cuda.synchronize()
     mi.reset_launches()
     t0 = time.perf_counter()
@@ -2285,9 +2350,10 @@ def durable_child(spec: dict) -> int:
     np.save(spec["result"], res.result_states)
     print("DURABLE " + json.dumps(dict(
         keys=[int(x) for x in res.result_keys],
-        counters={c: getattr(res, c) for c in COUNTERS},
-        resumed_from=resumed_from, wall_s=wall_s, launches=mi.launches)),
-        flush=True)
+        counters={c: getattr(res, c) for c in COUNTERS + ("rebalanced",)},
+        per_shard=res.per_shard, resumed_from=resumed_from,
+        resumed_host_syncs=resumed_syncs, wall_s=wall_s,
+        launches=mi.launches)), flush=True)
     return 0
 
 
@@ -2310,6 +2376,140 @@ def run_children(specs: list) -> list:
                 p.wait()
 
 
+def checkpointed_run(tag: str, spec: dict, want, what: str,
+                     want_wall_s: float) -> None:
+    """``durable_engine(spec)`` run once in this process, observed: it
+    must equal ``want`` (phase ``what``'s result) byte for byte with every
+    counter and ``per_shard`` list, and launch ``masked_intersect`` once a
+    shard a step; prints the checkpoints' count, bytes, the
+    ``checkpoint.save`` time on the engine's thread, the writer thread's
+    commits, the wall beside ``want_wall_s`` and the peak memory.  Removes
+    the checkpoint directory after."""
+    import torch
+    from repro_torch.kernels import masked_intersect as mi
+    from repro_torch.obs import Observability
+
+    obs = Observability()
+    eng = durable_engine(spec, observe=True, observability=obs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mi.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    shards = spec.get("shards", 1)
+    same_run(f"{tag}: the checkpointed run against phase {what}", res, want,
+             COUNTERS + ("rebalanced",))
+    if res.per_shard != want.per_shard:
+        fail(f"{tag}: per_shard {res.per_shard}, phase {what}'s "
+             f"{want.per_shard}")
+    m = obs.metrics
+    cap = m.get("checkpoint_capture_seconds").snapshot()
+    com = m.get("checkpoint_commit_seconds").snapshot()
+    saves = int(m.get("checkpoint_saves_total").value)
+    save_s = sum(d for name, _, d, _ in obs.tracer.spans()
+                 if name == "checkpoint.save")
+    print(f"[{tag}] checkpointed run (x{shards}, T={spec['T']}, "
+          f"checkpoint_every={DURABLE_EVERY}, disk spill): equal to phase "
+          f"{what} byte for byte with every counter and per_shard list; "
+          f"wall={wall_s:.3f}s (phase {what}: {want_wall_s:.3f}s, host "
+          f"spill, no checkpoint) saves={saves} "
+          f"bytes={int(m.get('checkpoint_bytes_written_total').value)} "
+          f"save_ms={1e3 * save_s:.1f} (on the engine's thread: the host "
+          f"copy and the capture, {1e3 * save_s / saves:.1f} a save) "
+          f"capture_ms={1e3 * cap['sum']:.1f} "
+          f"commit_ms={1e3 * com['sum']:.1f} ({com['count']} commits, on "
+          f"the writer thread) masked_intersect_launches={mi.launches} "
+          f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
+    if mi.launches != res.steps * shards:
+        fail(f"{tag}: the checkpointed run launched masked_intersect "
+             f"{mi.launches} times in {res.steps} steps of {shards} shards")
+    del eng
+    shutil.rmtree(spec["ckpt_dir"])   # its steps and linked runs
+
+
+def kill_and_resume(tag: str, cases: list, tmp: str) -> dict:
+    """Each case (``label``, ``spec`` fields for :func:`durable_engine`,
+    ``kill``, the result it must give, that result's phase) in a crash
+    child, all at once, each SIGKILLed (exit -9) at its kill point; then
+    each resumed in a second child, all at once: equal to its result byte
+    for byte with every counter (``rebalanced`` among them) and
+    ``per_shard`` list, no ``.tmp`` checkpoint dir and no spill file left
+    (every ``shard{i}`` directory included), and ``masked_intersect``
+    launched exactly once a shard an enqueued inner step of the resumed
+    run: ``shards x T x`` its host reads.  Removes each checkpoint
+    directory once checked.  Returns the resumed runs' launches."""
+    import os
+    import numpy as np
+
+    specs = [dict(fields, ckpt_dir=f"{tmp}/ck-{label}",
+                  spill_dir=f"{tmp}/spill-{label}",
+                  result=f"{tmp}/states-{label}.npy")
+             for label, fields, _, _, _ in cases]
+    t0 = time.perf_counter()
+    crashed = run_children([dict(spec, mode="crash", **kill)
+                            for spec, (_, _, kill, _, _) in zip(specs, cases)])
+    crash_s = time.perf_counter() - t0
+    for (label, *_), (rc, _, err) in zip(cases, crashed):
+        if rc != -9:
+            fail(f"{tag} {label}: the crash child exited {rc}, not by "
+                 f"SIGKILL: {err[-2000:]}")
+    for spec in specs:           # the resume runs on fresh spill dirs
+        spec["spill_dir"] += "-resume"
+    t0 = time.perf_counter()
+    resumed = run_children([dict(spec, mode="resume") for spec in specs])
+    resume_s = time.perf_counter() - t0
+    launches = {}
+    for spec, (label, fields, kill, ref, what), (rc, out, err) in zip(
+            specs, cases, resumed):
+        if rc != 0:
+            fail(f"{tag} {label}: the resume child exited {rc}: "
+                 f"{err[-2000:]}")
+        line = [x for x in out.splitlines() if x.startswith("DURABLE ")]
+        if not line:
+            fail(f"{tag} {label}: the resume child printed no result")
+        got = json.loads(line[0][len("DURABLE "):])
+        states = np.load(spec["result"])
+        if got["keys"] != [int(x) for x in ref.result_keys] or \
+                states.tobytes() != ref.result_states.tobytes() or \
+                got["counters"] != {c: getattr(ref, c)
+                                    for c in COUNTERS + ("rebalanced",)} or \
+                got["per_shard"] != ref.per_shard:
+            fail(f"{tag} {label}: the resumed run {got} differs from "
+                 f"phase {what}'s")
+        tmps = [d for d in os.listdir(spec["ckpt_dir"]) if d.endswith(".tmp")]
+        spill = [f for _, _, fs in os.walk(spec["spill_dir"]) for f in fs]
+        if tmps or spill:
+            fail(f"{tag} {label}: left {tmps} {spill[:4]}")
+        shards = fields.get("shards", 1)
+        ran = ref.steps - (got["resumed_from"] or 0)
+        enqueued = fields["T"] * (ref.host_syncs
+                                  - (got["resumed_host_syncs"] or 0))
+        if got["resumed_from"] is None or \
+                got["launches"] != shards * enqueued:
+            fail(f"{tag} {label}: resumed from {got['resumed_from']}, "
+                 f"{got['launches']} masked_intersect launches for "
+                 f"{shards} shards x {enqueued} enqueued inner steps")
+        launches[label] = got["launches"]
+        kill_at = (f"at step >= {kill['kill_at_step']}"
+                   if "kill_at_step" in kill else
+                   f"inside commit {kill['kill_in_commit']}")
+        print(f"[{tag}] {label}: killed (-9) {kill_at}, resumed from step "
+              f"{got['resumed_from']}: equal to phase {what} byte for byte "
+              f"with every counter and per_shard list (host_syncs "
+              f"{got['counters']['host_syncs']}, rebalanced "
+              f"{got['counters']['rebalanced']}); resumed run "
+              f"wall={got['wall_s']:.3f}s, masked_intersect_launches="
+              f"{got['launches']} for {ran} steps ({shards} shards x "
+              f"{enqueued} enqueued); no .tmp dir, spill dir empty")
+        shutil.rmtree(spec["ckpt_dir"])
+    print(f"[{tag}] children ({len(cases)} at a time, each its own CUDA "
+          f"context and graph): crash {crash_s:.1f}s, resume "
+          f"{resume_s:.1f}s")
+    return launches
+
+
 def phase_durable(want, want_wall_s: float, want8) -> dict:
     """Phase 11a: durable runs of phase 4's path.  First one checkpointed
     run in this process (``checkpoint_every=64``, the disk spill): phase
@@ -2319,110 +2519,61 @@ def phase_durable(want, want_wall_s: float, want8) -> dict:
     host read past step 150, at T = ``MACRO_T`` inside its second commit;
     each resumed run must equal phase 4's (T = 1) or phase 8's result byte
     for byte with every counter, leave no ``.tmp`` checkpoint dir and no
-    spill file, and launch ``masked_intersect``.  Returns the resumed
-    runs' launches."""
-    import os
+    spill file, and launch ``masked_intersect`` once an enqueued step.
+    Returns the resumed runs' launches."""
     import tempfile
-    import numpy as np
-    import torch
-    from repro_torch.kernels import masked_intersect as mi
-    from repro_torch.obs import Observability
-
-    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        spec = dict(T=1, ckpt_dir=f"{tmp}/ck", spill_dir=f"{tmp}/spill")
-        obs = Observability()
-        eng = durable_engine(spec, observe=True, observability=obs)
-        torch.cuda.synchronize()
-        mi.reset_launches()
-        t0 = time.perf_counter()
-        res = eng.run()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        same_run("phase 11 checkpointed run against phase 4", res, want)
-        m = obs.metrics
-        cap = m.get("checkpoint_capture_seconds").snapshot()
-        com = m.get("checkpoint_commit_seconds").snapshot()
-        saves = int(m.get("checkpoint_saves_total").value)
-        save_s = sum(d for name, _, d, _ in obs.tracer.spans()
-                     if name == "checkpoint.save")
-        print(f"[11 durable] checkpointed run (T=1, checkpoint_every="
-              f"{DURABLE_EVERY}, disk spill): equal to phase 4 byte for byte "
-              f"with every counter; wall={wall_s:.3f}s (phase 4: "
-              f"{want_wall_s:.3f}s, host spill, no checkpoint) saves={saves} "
-              f"bytes={int(m.get('checkpoint_bytes_written_total').value)} "
-              f"save_ms={1e3 * save_s:.1f} (on the engine's thread: the "
-              f"host copy and the capture, {1e3 * save_s / saves:.1f} a "
-              f"save) capture_ms={1e3 * cap['sum']:.1f} "
-              f"commit_ms={1e3 * com['sum']:.1f} ({com['count']} commits, "
-              f"on the writer thread) masked_intersect_launches="
-              f"{mi.launches}")
-        if mi.launches != res.steps:
-            fail(f"the checkpointed run launched masked_intersect "
-                 f"{mi.launches} times in {res.steps} steps")
-        del eng
-        shutil.rmtree(tmp + "/ck")    # its steps and linked runs: ~1 GB
+        checkpointed_run("11 durable", dict(
+            T=1, ckpt_dir=f"{tmp}/ck", spill_dir=f"{tmp}/spill"), want, "4",
+            want_wall_s)
+        launches = kill_and_resume("11 durable", [
+            ("T=1", dict(T=1), dict(kill_at_step=DURABLE_KILL_STEP), want,
+             "4"),
+            (f"T={MACRO_T}", dict(T=MACRO_T),
+             dict(kill_in_commit=DURABLE_KILL_COMMIT), want8, "8")], tmp)
+    return {f"durable clique {label}": n for label, n in launches.items()}
 
-        cases = {1: (want, dict(kill_at_step=DURABLE_KILL_STEP)),
-                 MACRO_T: (want8, dict(kill_in_commit=DURABLE_KILL_COMMIT))}
-        specs = {t: dict(T=t, ckpt_dir=f"{tmp}/ck{t}",
-                         spill_dir=f"{tmp}/spill{t}",
-                         result=f"{tmp}/states{t}.npy") for t in cases}
-        t0 = time.perf_counter()
-        crashed = run_children([dict(specs[t], mode="crash", **kill)
-                                for t, (_, kill) in cases.items()])
-        crash_s = time.perf_counter() - t0
-        for t, (rc, _, err) in zip(cases, crashed):
-            if rc != -9:
-                fail(f"durable T={t}: the crash child exited {rc}, not by "
-                     f"SIGKILL: {err[-2000:]}")
-        for t in cases:       # the resume runs on fresh spill dirs
-            specs[t]["spill_dir"] += "-resume"
-        t0 = time.perf_counter()
-        resumed = run_children([dict(specs[t], mode="resume")
-                                for t in cases])
-        resume_s = time.perf_counter() - t0
-        for t, (rc, out, err) in zip(cases, resumed):
-            ref = cases[t][0]
-            if rc != 0:
-                fail(f"durable T={t}: the resume child exited {rc}: "
-                     f"{err[-2000:]}")
-            line = [x for x in out.splitlines() if x.startswith("DURABLE ")]
-            if not line:
-                fail(f"durable T={t}: the resume child printed no result")
-            got = json.loads(line[0][len("DURABLE "):])
-            states = np.load(specs[t]["result"])
-            if got["keys"] != [int(x) for x in ref.result_keys] or \
-                    states.tobytes() != ref.result_states.tobytes() or \
-                    got["counters"] != {c: getattr(ref, c) for c in COUNTERS}:
-                fail(f"durable T={t}: the resumed run {got} differs from "
-                     f"phase {4 if t == 1 else 8}'s")
-            tmps = [d for d in os.listdir(specs[t]["ckpt_dir"])
-                    if d.endswith(".tmp")]
-            spill = [f for _, _, fs in os.walk(specs[t]["spill_dir"])
-                     for f in fs]
-            if tmps or spill:
-                fail(f"durable T={t}: left {tmps} {spill[:4]}")
-            ran = ref.steps - (got["resumed_from"] or 0)
-            if got["resumed_from"] is None or got["launches"] < ran or \
-                    (t == 1 and got["launches"] != ran):
-                fail(f"durable T={t}: resumed from "
-                     f"{got['resumed_from']}, {got['launches']} "
-                     f"masked_intersect launches for {ran} steps")
-            launches[f"durable clique T={t}"] = got["launches"]
-            print(f"[11 durable] T={t}: killed (-9) "
-                  + (f"at step >= {DURABLE_KILL_STEP}" if t == 1 else
-                     f"inside commit {DURABLE_KILL_COMMIT}")
-                  + f", resumed from step {got['resumed_from']}: equal to "
-                  f"phase {4 if t == 1 else 8} byte for byte with every "
-                  f"counter (host_syncs {got['counters']['host_syncs']}); "
-                  f"resumed run wall={got['wall_s']:.3f}s, "
-                  f"masked_intersect_launches={got['launches']} for {ran} "
-                  f"steps; no .tmp dir, spill dir empty")
-        print(f"[11 durable] children (two at a time, each its own CUDA "
-              f"context and graph): crash {crash_s:.1f}s, resume "
-              f"{resume_s:.1f}s")
-    return launches
+
+@contextlib.contextmanager
+def task_launches():
+    """``masked_intersect`` launches read around each service task's
+    steps, by request id: the scheduler's task classes' ``step`` wrapped,
+    and put back on exit."""
+    from repro_torch.kernels import masked_intersect as mi
+    from repro_torch.service import scheduler
+    by_request, inner = {}, {}
+
+    def counted(cls):
+        def step(task):
+            before = mi.launches
+            inner[cls](task)
+            rid = task.request.request_id
+            by_request[rid] = by_request.get(rid, 0) + mi.launches - before
+        return step
+
+    for cls in (scheduler.EngineQueryTask, scheduler.PatternQueryTask):
+        inner[cls] = cls.step
+        cls.step = counted(cls)
+    try:
+        yield by_request
+    finally:
+        for cls, step in inner.items():
+            cls.step = step
+
+
+def service_answer(r, ref, results, what: str) -> None:
+    """A service response equal to the engine result ``ref``: its keys,
+    ``results`` (the response's lists) and every counter, ``rebalanced``
+    among them."""
+    names = COUNTERS + ("rebalanced",)
+    got = {c: r.stats[c] for c in names}
+    if r.result_keys != [int(x) for x in ref.result_keys] or \
+            r.results != results or \
+            got != {c: getattr(ref, c) for c in names}:
+        fail(f"service {r.request_id}: {r.result_keys} {got}, {what} "
+             f"{[int(x) for x in ref.result_keys]} "
+             f"{ {c: getattr(ref, c) for c in names} }")
+
 
 def phase_service(want, described, iso_run) -> dict:
     """Phase 11b: one ``DiscoveryService(device="cuda")`` over phase 4's
@@ -2440,11 +2591,9 @@ def phase_service(want, described, iso_run) -> dict:
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.data.synthetic_graphs import (labeled_graph,
                                                    planted_clique_graph)
-    from repro_torch.kernels import masked_intersect as mi
     from repro_torch.obs import Observability
     from repro_torch.service import (DiscoveryRequest, DiscoveryService,
                                      GraphRegistry)
-    from repro_torch.service import scheduler
 
     want9, described9, q_labels = iso_run
     t0 = time.perf_counter()
@@ -2455,20 +2604,10 @@ def phase_service(want, described, iso_run) -> dict:
     graphs_s = time.perf_counter() - t0
     obs = Observability()
     svc = DiscoveryService(registry, observability=obs, device="cuda")
-    clique = dict(graph="clique", workload="clique", k=FULL_ENGINE["k"],
-                  batch=FULL_ENGINE["batch"],
-                  pool_capacity=FULL_ENGINE["pool_capacity"])
-    by_request, inner = {}, {}
+    clique = dict(graph="clique", workload="clique", **SERVICE_CLIQUE)
 
-    def counted(cls):
-        def step(task):
-            before = mi.launches
-            inner[cls](task)
-            rid = task.request.request_id
-            by_request[rid] = by_request.get(rid, 0) + mi.launches - before
-        return step
-
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            task_launches() as by_request:
         truncated = dict(clique, **SERVICE_TRUNCATED, checkpoint_dir=tmp,
                          use_cache=False)
         batch = [
@@ -2486,26 +2625,18 @@ def phase_service(want, described, iso_run) -> dict:
             DiscoveryRequest(**truncated, request_id="truncated")]
         resume = DiscoveryRequest(**dict(truncated, step_budget=100_000),
                                   resume=True, request_id="resumed")
-        for cls in (scheduler.EngineQueryTask, scheduler.PatternQueryTask):
-            inner[cls] = cls.step
-            cls.step = counted(cls)
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            mi.reset_launches()
-            t0 = time.perf_counter()
-            first = svc.serve(batch)
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-            steps_first = svc.engine_steps_total
-            committed = CheckpointManager(tmp).latest_step()
-            t0 = time.perf_counter()
-            second = svc.serve([resume])
-            torch.cuda.synchronize()
-            second_s = time.perf_counter() - t0
-        finally:
-            for cls, step in inner.items():
-                cls.step = step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = svc.serve(batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        steps_first = svc.engine_steps_total
+        committed = CheckpointManager(tmp).latest_step()
+        t0 = time.perf_counter()
+        second = svc.serve([resume])
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
 
     resp = {r.request_id: r for r in first + second}
@@ -2517,19 +2648,10 @@ def phase_service(want, described, iso_run) -> dict:
               f"keys={r.result_keys} steps={r.stats['steps']} "
               f"masked_intersect_launches={by_request.get(rid, 0)}")
 
-    def engine_answer(r, ref, results, what):
-        got = {c: r.stats[c] for c in COUNTERS}
-        if r.result_keys != [int(x) for x in ref.result_keys] or \
-                r.results != results or \
-                got != {c: getattr(ref, c) for c in COUNTERS} or \
-                r.stats["rebalanced"] != 0:
-            fail(f"service {r.request_id}: {r.result_keys} {got}, {what} "
-                 f"{[int(x) for x in ref.result_keys]}")
-
-    engine_answer(resp["clique"], want, described, "phase 4")
-    engine_answer(resp["clique repeat"], want, described, "phase 4")
-    engine_answer(resp["iso"], want9, described9, "phase 9")
-    engine_answer(resp["resumed"], want, described, "phase 4")
+    service_answer(resp["clique"], want, described, "phase 4")
+    service_answer(resp["clique repeat"], want, described, "phase 4")
+    service_answer(resp["iso"], want9, described9, "phase 9")
+    service_answer(resp["resumed"], want, described, "phase 4")
     pat = resp["pattern"]
     if pat.result_keys != [sup for sup, _ in PATTERN_SMALL_WANT["patterns"]] \
             or pat.results != [[list(e) for e in code] for _, code in
@@ -2596,7 +2718,8 @@ def phase_serve_cli() -> None:
     cache hit, weighted clique, iso and pattern with ``use_pallas``, a
     label predicate, malformed lines, ``shards: 2``, a metrics command),
     both processes at once; their response lines must be equal but for
-    the wall-clock fields."""
+    the wall-clock fields, and the ``shards: 2`` line an answer equal to
+    the one-shard clique request's."""
     import os
     import subprocess as sp
     import tempfile
@@ -2632,17 +2755,159 @@ def phase_serve_cli() -> None:
         fail(f"serve: the cuda lines differ from the cpu lines:\n"
              f"{lines['cuda']}\n{lines['cpu']}")
     by_id = {d.get("request_id"): d for d in lines["cuda"]}
-    if "item 12" not in (by_id["sharded"].get("error") or "") or \
+    sharded, clique = by_id["sharded"], by_id["clique"]
+    if sharded["status"] != "ok" or \
+            (sharded["result_keys"], sharded["results"]) != \
+            (clique["result_keys"], clique["results"]) or \
+            sharded["stats"]["syncs"] != sharded["stats"]["steps"] or \
             not by_id["clique again"]["cached"] or \
-            sum(d.get("status") == "error" for d in lines["cuda"]) != 3:
+            sum(d.get("status") == "error" for d in lines["cuda"]) != 2:
         fail(f"serve: {lines['cuda']}")
     summary = {dev: err.strip().splitlines()[-1] for dev, (_, err)
                in outs.items()}
     print(f"[11 serve] {len(CLI_REQUESTS)} request lines through "
           f"--device cuda and --device cpu (both at once, {wall_s:.1f}s): "
           f"equal response lines (latency and straggler count aside); "
-          f"shards: 2 answered '{by_id['sharded']['error']}'; cuda "
-          f"{summary['cuda']}")
+          f"shards: 2 answered ok with the one-shard answer "
+          f"{sharded['result_keys']} in {sharded['stats']['steps']} steps; "
+          f"cuda {summary['cuda']}")
+
+
+def phase_sharded_durable(want12: dict, walls12: dict, want13: dict,
+                          described: list, env: dict) -> dict:
+    """Phase 14: the sharded checkpoint and the service's sharded path on
+    phase 4's cell.  (a) ``SHARDED_DURABLE`` shards, T = 1, the disk spill
+    and ``checkpoint_every=64``, in this process: phase 12's result with
+    every counter and ``per_shard`` list, and what the checkpoints cost.
+    (b) Kill and resume in subprocesses (:func:`kill_and_resume`): the
+    same at T = 1 SIGKILLed at the first host read past step 150, and
+    ``SHARDED_DURABLE_MACRO`` (2 shards, K = 4) at T = ``MACRO_T``
+    SIGKILLed inside its second commit: phase 12's and phase 13a's
+    results.  (c) :func:`sharded_service`.  Returns the launches by
+    path."""
+    import gc
+    import tempfile
+    import torch
+
+    s8, (s2, K) = SHARDED_DURABLE, SHARDED_DURABLE_MACRO
+    tag = "14 sharded durable"
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpointed_run(tag, dict(T=1, shards=s8, ckpt_dir=f"{tmp}/ck",
+                                   spill_dir=f"{tmp}/spill"),
+                         want12[s8], f"12 (x{s8})", walls12[s8])
+        # the children's memory: ~4.1 GiB at 8 shards, T = 1, and ~10.9
+        # at 2 shards, T = 16, beside this process's cached blocks
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"[{tag}] before the children: {free / 2**30:.2f} GiB free "
+              f"of {total / 2**30:.2f} GiB, this process holding "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+              f"({env['smi']})")
+        launches = kill_and_resume(tag, [
+            (f"x{s8} T=1", dict(T=1, shards=s8),
+             dict(kill_at_step=DURABLE_KILL_STEP), want12[s8],
+             f"12 (x{s8})"),
+            (f"x{s2} T={MACRO_T} K={K}", dict(T=MACRO_T, shards=s2, K=K),
+             dict(kill_in_commit=DURABLE_KILL_COMMIT), want13[s2, K],
+             f"13a (x{s2}, K={K})")], tmp)
+    launches = {f"durable clique {label}": n for label, n in launches.items()}
+    launches.update(sharded_service(want12[s2], want13[s2, K], described,
+                                    env))
+    return launches
+
+
+def sharded_service(want2, want2_k: dict, described: list, env: dict
+                    ) -> dict:
+    """Phase 14c: one ``DiscoveryService(device="cuda")`` batch of phase
+    4's clique request at 2 shards (T = 1), the same at T = ``MACRO_T``
+    with ``sync_every`` K, and the 2-shard request cut at 100 steps with
+    checkpoints every 32; then, in a second call, that request resumed
+    with the full budget.  They must give phase 12's 2-shard answer and
+    counters, phase 13a's and, resumed, phase 12's again, each with phase
+    4's results; ``masked_intersect`` launched once a shard an enqueued
+    inner step of each task.  Returns the launches by path."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.synthetic_graphs import planted_clique_graph
+    from repro_torch.obs import Observability
+    from repro_torch.service import (DiscoveryRequest, DiscoveryService,
+                                     GraphRegistry)
+
+    s2, K = SHARDED_DURABLE_MACRO
+    t0 = time.perf_counter()
+    registry = GraphRegistry()
+    registry.register("clique", planted_clique_graph(**FULL_GRAPH))
+    graphs_s = time.perf_counter() - t0
+    svc = DiscoveryService(registry, observability=Observability(),
+                           device="cuda")
+    x2 = dict(graph="clique", workload="clique", **SERVICE_CLIQUE, shards=s2)
+    macro = f"x{s2} T={MACRO_T} K={K}"
+    with tempfile.TemporaryDirectory() as tmp, \
+            task_launches() as by_request:
+        truncated = dict(x2, **SERVICE_TRUNCATED, checkpoint_dir=tmp,
+                         use_cache=False)
+        # steps_per_sync and sync_every stay out of the result-cache key,
+        # so the macro-step request skips the cache
+        batch = [DiscoveryRequest(**x2, request_id=f"x{s2}"),
+                 DiscoveryRequest(**x2, steps_per_sync=MACRO_T, sync_every=K,
+                                  use_cache=False, request_id=macro),
+                 DiscoveryRequest(**truncated,
+                                  request_id=f"x{s2} truncated")]
+        resume = DiscoveryRequest(**dict(truncated, step_budget=100_000),
+                                  resume=True, request_id=f"x{s2} resumed")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = svc.serve(batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        committed = CheckpointManager(tmp).latest_step()
+        t0 = time.perf_counter()
+        second = svc.serve([resume])
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+
+    resp = {r.request_id: r for r in first + second}
+    for rid, r in resp.items():
+        if r.status != "ok":
+            fail(f"service {rid}: {r.error}")
+        print(f"[14 sharded service] {rid}: terminated={r.terminated} "
+              f"latency_s={r.latency_s:.3f} keys={r.result_keys} "
+              f"steps={r.stats['steps']} host_syncs={r.stats['host_syncs']} "
+              f"syncs={r.stats['syncs']} rebalanced={r.stats['rebalanced']} "
+              f"masked_intersect_launches={by_request.get(rid, 0)}")
+    service_answer(resp[f"x{s2}"], want2, described, f"phase 12 (x{s2})")
+    service_answer(resp[macro], want2_k, described, f"phase 13a ({macro})")
+    service_answer(resp[f"x{s2} resumed"], want2, described,
+                   f"phase 12 (x{s2})")
+    cut = SERVICE_TRUNCATED["step_budget"]
+    cut_resp = resp[f"x{s2} truncated"]
+    checks = [
+        (cut_resp.terminated == "step_budget"
+         and cut_resp.stats["steps"] == cut == committed,
+         f"truncated run: {cut_resp.stats['steps']} steps, newest "
+         f"checkpoint {committed}"),
+        (resp[f"x{s2} resumed"].terminated == "complete",
+         "resumed: not complete"),
+        (by_request[f"x{s2}"] == s2 * want2.steps
+         and by_request[macro] == s2 * MACRO_T * want2_k.host_syncs
+         and by_request[f"x{s2} truncated"] == s2 * cut
+         and by_request[f"x{s2} resumed"] == s2 * (want2.steps - cut),
+         f"masked_intersect launches by request {by_request}")]
+    for ok, what in checks:
+        if not ok:
+            fail(f"sharded service: {what}")
+    print(f"[14 sharded service] answers equal phases 12 and 13a (keys, "
+          f"phase 4's results, every counter); the cut request resumed "
+          f"from step {committed} to {want2.steps}; graph={graphs_s:.2f}s "
+          f"batch={first_s:.3f}s resume={second_s:.3f}s "
+          f"peak_mem={peak / 2**30:.2f}GiB ({env['smi']})")
+    return {f"service clique x{s2}": by_request[f"x{s2}"],
+            f"service clique {macro}": by_request[macro],
+            f"service clique x{s2} resumed": by_request[f"x{s2} resumed"]}
 
 
 def main() -> int:
@@ -2670,11 +2935,11 @@ def main() -> int:
     cowork = phase_coworkload(planted_clique_graph(**FULL_GRAPH), ragged)
     phase_merge_topk()
     macro_launches, res8 = phase_macro_path(comp, res, idle_t1)
-    sharded_launches, sharded12 = phase_sharded(comp, res, env)
+    sharded_launches, sharded12, walls12 = phase_sharded(comp, res, env)
     t13 = time.perf_counter()
-    stale_launches = phase_sharded_macro(comp, res, sharded12, env)
+    stale_launches, sharded13 = phase_sharded_macro(comp, res, sharded12,
+                                                    env)
     print(f"[13] phase 13 wall={time.perf_counter() - t13:.1f}s")
-    del sharded12
     described = [comp.describe(row) for key, row in
                  zip(res.result_keys, res.result_states) if key > -2 ** 31]
     del comp
@@ -2685,6 +2950,10 @@ def main() -> int:
     service_launches = phase_service(res, described, iso_run)
     phase_serve_cli()
     print(f"[11] phase 11 wall={time.perf_counter() - t11:.1f}s")
+    t14 = time.perf_counter()
+    sharded_durable_launches = phase_sharded_durable(
+        sharded12, walls12, sharded13, described, env)
+    print(f"[14] phase 14 wall={time.perf_counter() - t14:.1f}s")
     kernels = [dict(
         name="masked_intersect", route="cuda",
         source="src/repro_torch/kernels/csrc/masked_intersect.cu",
@@ -2700,7 +2969,8 @@ def main() -> int:
             "clique T=1": launches, f"clique T={MACRO_T}": macro_launches,
             **{f"iso T={t}": n for t, n in iso["launches_by_t"].items()},
             **pattern_launches, **durable_launches, **service_launches,
-            **sharded_launches, **stale_launches})]
+            **sharded_launches, **stale_launches,
+            **sharded_durable_launches})]
     for name, line in (("segment_matmul", 59), ("embedding_bag", 46),
                        ("flash_attention", 84)):
         # the fp32 record first; a bf16 one beside it where both run

@@ -4,9 +4,11 @@ The data takes the place of weights here: a graph built by ``repro`` comes
 across through its numpy fields (:func:`graph_from_arrays`), a reference
 :class:`~repro.core.engine.EngineState` with an empty spill queue through
 its arrays and scalar counters (:func:`state_from_arrays`), so that a run
-started by the reference can be continued by the port (a state with spill
-comes across as a checkpoint directory, :meth:`Engine.resume`), and any reference array (a table,
-q/k/v) through :func:`tensor_from_array`.  All take plain numpy and Python
+started by the reference can be continued by the port, and any reference
+array (a table, q/k/v) through :func:`tensor_from_array`.  A state with
+spill comes across as a checkpoint directory: :meth:`Engine.resume` for a
+single-device state, :meth:`repro_torch.distributed.ShardedEngine.resume`
+for a sharded one.  All take plain numpy and Python
 values: nothing of ``repro`` is imported.
 """
 from __future__ import annotations

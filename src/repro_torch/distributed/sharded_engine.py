@@ -48,8 +48,12 @@ Decisions that differ from the reference: the shard axis is a Python loop
 over slices of tensors on the computation's one device, so any ``shards >=
 1`` runs (the reference needs that many JAX devices and raises beyond
 them), and ``shard_map_compat`` has no counterpart.  ``shards < 1`` is a
-``ValueError``, as in the reference.  The sharded checkpoint (ROADMAP
-Queue 1, item 12c) raises ``NotImplementedError`` naming its item.
+``ValueError``, as in the reference.
+
+Checkpoints (:meth:`ShardedEngine.save_checkpoint`, :meth:`~ShardedEngine.
+resume`, ``run(resume=...)``) keep the reference's manifest, leaf names and
+file layout, so either package resumes a sharded checkpoint that the other
+wrote.
 """
 from __future__ import annotations
 
@@ -61,17 +65,17 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.api import NEG, SubgraphComputation
 from repro_torch.core.engine import (_STAT_NAMES, Engine, EngineConfig,
                                      EngineResult, merge_topk, sharded_bound,
                                      stale_bound)
 from repro_torch.core.vpq import VirtualPriorityQueue
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"ShardedEngine: {what} is not ported yet: ROADMAP Queue 1, "
-        f"item {item}")
+#: ShardedEngineState counters checkpointed verbatim (the reference's
+#: tuple); ``pool_occupancy`` is saved beside them as a list of ints
+_CKPT_SCALARS = ("steps", "candidates", "expanded", "pruned", "refilled",
+                 "rebalanced", "syncs", "host_syncs", "threshold", "done")
 
 
 @dataclasses.dataclass
@@ -539,24 +543,88 @@ class ShardedEngine:
             host_syncs=st.host_syncs, per_shard=per_shard)
 
     # ------------------------------------------------------- checkpointing
-    def save_checkpoint(self, mgr, st: ShardedEngineState,
+    def save_checkpoint(self, mgr: CheckpointManager, st: ShardedEngineState,
                         blocking: bool = False) -> None:
-        raise _not_ported("the sharded checkpoint", "12c")
+        """Persist ``st`` through ``mgr``'s atomic-commit protocol: one
+        manifest covers every shard, each shard's queue snapshot goes under
+        ``vpq/shard{i}`` of the step directory (the reference's DESIGN.md
+        §15).  The pools and result sets are copied to the host, in the
+        global layout, before this returns.  Not checkpointed, as in the
+        reference: the ``record_bound_trace`` journals (a resumed run's
+        ``per_shard`` traces cover only the steps after the resume) and the
+        macro-step accumulator, which belongs to the engine."""
+        scalars = {name: getattr(st, name) for name in _CKPT_SCALARS}
+        scalars["pool_occupancy"] = [int(x) for x in st.pool_occupancy]
+
+        def capture(tmp_dir: str) -> dict:
+            vpqs = [v.snapshot(os.path.join(tmp_dir, "vpq", f"shard{i}"))
+                    for i, v in enumerate(st.vpqs)]
+            return {"kind": "sharded_engine", "shards": self.shards,
+                    "scalars": scalars, "vpqs": vpqs}
+
+        mgr.save(st.steps, self._eng._ckpt_arrays(st), blocking=blocking,
+                 capture=capture)
 
     def resume(self, source,
                step: Optional[int] = None) -> ShardedEngineState:
-        raise _not_ported("the sharded checkpoint", "12c")
+        """Rebuild a :class:`ShardedEngineState` on this engine's device
+        from a committed checkpoint (a directory or a
+        :class:`CheckpointManager`; the newest step unless ``step`` is
+        given), written by this package or by the reference at the same
+        shard count.  Each shard's spill files are linked into
+        ``cfg.spill_dir/shard{i}`` (a fresh temp dir when ``spill_dir`` is
+        None)."""
+        mgr = (source if isinstance(source, CheckpointManager)
+               else CheckpointManager(source, obs=self.obs))
+        manifest = mgr.read_manifest(step)
+        step = manifest["step"]
+        extra = manifest["extra"]
+        if extra is None or extra.get("kind") != "sharded_engine":
+            raise ValueError(
+                f"step {step} in {mgr.dir} is not a sharded-engine "
+                f"checkpoint")
+        if extra["shards"] != self.shards:
+            raise ValueError(
+                f"checkpoint written at shards={extra['shards']}, engine "
+                f"configured with shards={self.shards}")
+        like = {leaf["name"]: np.zeros(
+            [int(s) for s in leaf["shape"]], np.dtype(leaf["dtype"]))
+            for leaf in manifest["leaves"]}
+        tree = mgr.restore(like, step=step)
+        vpqs = [VirtualPriorityQueue.restore(
+            vman, os.path.join(mgr.path(step), "vpq", f"shard{i}"),
+            spill_dir=(os.path.join(self.cfg.spill_dir, f"shard{i}")
+                       if self.cfg.spill_dir is not None else None),
+            obs=self.obs) for i, vman in enumerate(extra["vpqs"])]
+        scalars = dict(extra["scalars"])
+        occ = np.asarray(scalars.pop("pool_occupancy"), np.int64)
+        return ShardedEngineState(
+            vpqs=vpqs, pool_occupancy=occ,
+            **{name: self._eng._to_device(a) for name, a in tree.items()},
+            **scalars)
 
     # ------------------------------------------------------------------- run
     def run(self, progress_every: int = 0,
             resume: bool = False) -> EngineResult:
-        """Run to completion (or ``max_steps``).  Periodic checkpoints and
-        ``resume`` from a ``checkpoint_dir`` are item 12c."""
+        """Run to completion (or ``max_steps``), with
+        :meth:`Engine.run`'s checkpoint contract: with
+        ``cfg.checkpoint_every > 0`` and a ``cfg.checkpoint_dir``, the
+        state is saved at the first host read every ``checkpoint_every``
+        steps after the last save (between macro-steps at ``steps_per_sync
+        > 1``), and once more at the end; ``resume=True`` continues from
+        the newest committed step there (a fresh start when none is
+        committed)."""
+        mgr = None
         if self.cfg.checkpoint_dir and (self.cfg.checkpoint_every > 0
                                         or resume):
-            raise _not_ported("checkpoint_every and resume under shards",
-                              "12c")
-        st = self.start()
+            mgr = CheckpointManager(self.cfg.checkpoint_dir, obs=self.obs)
+        st = None
+        if resume and mgr is not None and mgr.latest_step() is not None:
+            st = self.resume(mgr)
+        if st is None:
+            st = self.start()
+        every = self.cfg.checkpoint_every
+        last_ckpt = st.steps
         while not st.done and st.steps < self.cfg.max_steps:
             self.step(st, max_inner=self.cfg.max_steps - st.steps)
             if progress_every and st.steps % progress_every == 0:
@@ -564,4 +632,12 @@ class ShardedEngine:
                       f"occ={st.pool_occupancy.tolist()} "
                       f"vpq={[len(v) for v in st.vpqs]} "
                       f"thr={st.threshold} cand={st.candidates}")
+            if mgr is not None and every > 0 and \
+                    st.steps - last_ckpt >= every:
+                self.save_checkpoint(mgr, st)
+                last_ckpt = st.steps
+        if mgr is not None and every > 0 and st.steps > last_ckpt:
+            self.save_checkpoint(mgr, st)   # the final state restores too
+        if mgr is not None:
+            mgr.wait()
         return self.finalize(st)

@@ -30,9 +30,11 @@ replies inline with the same live snapshot.
 
 The loop runs on ``cuda`` unless ``--device`` names another device (it
 raises without a card); ``--device cpu`` runs every kernel's plain
-version.  The request schema is the reference's (docs/API.md), with two
-requests answered as errors here: ``interpret`` not null, and
-``shards > 1`` (the service's sharded path is ROADMAP Queue 1, item 12c)::
+version.  The request schema is the reference's (docs/API.md); a request
+with ``interpret`` not null is answered as an error here.  A ``shards: N``
+request runs :class:`repro_torch.distributed.ShardedEngine` on the one
+device at any N (the reference answers an error when N exceeds its JAX
+device count)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests reqs.jsonl
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu < reqs.jsonl

@@ -4,13 +4,15 @@ docs/API.md) — the port of ``repro.service.api``.
 Every request field, validation message and canonical spec is the
 reference's, so equal requests key equally and a JSONL request stream gets
 the same response lines from both packages.  The port differs in three
-places, each answered as a :class:`ValidationError` (a ``status: "error"``
-response, never a crash):
+places:
 
-* ``interpret`` must be null: the kernel path follows the tensors' device
-  (the service's ``device``), so a Pallas interpret mode has no meaning;
-* ``shards > 1`` needs the sharded engine, which the service does not run
-  yet (ROADMAP Queue 1, item 12c);
+* ``interpret`` must be null, else a :class:`ValidationError` (a ``status:
+  "error"`` response, never a crash): the kernel path follows the tensors'
+  device (the service's ``device``), so a Pallas interpret mode has no
+  meaning;
+* ``shards > 1`` runs :class:`repro_torch.distributed.ShardedEngine`,
+  whose shard axis is logical: any shard count runs on the one device,
+  where the reference answers an error beyond its JAX device count;
 * ``use_pallas`` stays on the wire and out of the cache key as in the
   reference, and picks the candidate algorithm of iso and of the pattern
   probes; the :class:`EngineConfig` carries it, as the reference's does,
@@ -249,10 +251,6 @@ class DiscoveryRequest:
                 "checkpoint/resume applies to engine workloads only; "
                 "pattern mining runs on the host-side aggregate model "
                 "(DESIGN.md §15)")
-        if self.shards > 1:
-            raise ValidationError(
-                "shards > 1 needs the sharded engine, which the service "
-                "does not run yet: ROADMAP Queue 1, item 12c")
         if self.interpret is not None:
             raise ValidationError(
                 "interpret has no meaning here: the kernel path follows "
@@ -479,12 +477,11 @@ def compile_request(req: DiscoveryRequest, registry: GraphRegistry,
     if req.workload == "pattern":
         return CompiledQuery(request=req, graph=g, kind="aggregate")
 
-    # validation keeps shards at 1, so the single-device engine runs the
-    # query; it ignores sync_every and use_pallas, as the reference's
-    # single-device Engine does, and the computation reads use_pallas
+    # the engine ignores use_pallas (and Engine sync_every), as the
+    # reference's does; the computation reads use_pallas
     cfg = EngineConfig(k=req.k, batch=req.batch,
                        pool_capacity=req.pool_capacity,
-                       max_steps=req.step_budget,
+                       max_steps=req.step_budget, shards=req.shards,
                        steps_per_sync=req.steps_per_sync,
                        sync_every=req.sync_every,
                        checkpoint_every=req.checkpoint_every,

@@ -29,6 +29,7 @@ from repro_torch.core.aggregate import TopKPatternMiner
 from repro_torch.core.api import resolve_device
 from repro_torch.core.engine import NEG, Engine
 from repro_torch.core.graph import GraphStore
+from repro_torch.distributed import ShardedEngine
 from repro_torch.obs import NOOP
 from repro_torch.runtime.fault_tolerance import StragglerMonitor
 
@@ -429,10 +430,10 @@ class DiscoveryService:
                 # observing engines record into the service registry so a
                 # single snapshot covers the whole process (DESIGN.md §16)
                 compiled.engine_cfg.observability = self.obs
-            # validation rejects shards > 1 (the service's sharded path is
-            # ROADMAP Queue 1, item 12c), so every query runs on the one
-            # device
-            engine = Engine(compiled.comp, compiled.engine_cfg)
+            if compiled.engine_cfg.shards > 1:
+                engine = ShardedEngine(compiled.comp, compiled.engine_cfg)
+            else:
+                engine = Engine(compiled.comp, compiled.engine_cfg)
             self._engines.put(engine_key, engine)
         return EngineQueryTask(req, engine, obs=self.obs)
 

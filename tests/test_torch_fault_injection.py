@@ -1,6 +1,7 @@
-"""Crash injection for the port's durable runs: the 1-shard tier of
-tests/test_fault_injection.py, with the port in the crash and resume
-children and the reference's uninterrupted run as the oracle.
+"""Crash injection for the port's durable runs: every cell of
+tests/test_fault_injection.py (its 1-, 2- and 8-shard tiers), with the
+port in the crash and resume children and the reference's uninterrupted
+run as the oracle.
 
 Each cell runs real subprocesses of this file (its ``__main__``):
 
@@ -10,11 +11,14 @@ Each cell runs real subprocesses of this file (its ``__main__``):
 2. optionally a second crash, resumed from the newest committed step;
 3. **resume** — restart with ``resume=True`` and print the result.
 
-The resumed result must equal the reference engine's uninterrupted run
-(run in the test's own process) in keys, states and every counter; no
-``step_*.tmp`` dir may survive and the resumed run's spill dir must be
-empty once its queue closes.  The kill step is drawn from a seeded RNG
-inside the run's span::
+The resumed result must equal the reference's uninterrupted run in keys,
+states and every counter; no ``step_*.tmp`` dir may survive and the
+resumed run's spill dir (every ``shard{i}`` under it) must be empty once
+its queues close.  The reference's ``Engine`` runs in the test's own
+process; its ``ShardedEngine`` needs one JAX device a shard, so the sharded
+oracles run once, in one subprocess of this file under
+``XLA_FLAGS=--xla_force_host_platform_device_count=8``.  The kill step is
+drawn from a seeded RNG inside the run's span::
 
     PYTHONPATH=src python tests/test_torch_fault_injection.py \\
         --spec '<json>' --mode crash
@@ -73,7 +77,8 @@ def engine_config(spec: dict, checkpointed: bool) -> dict:
         k=spec.get("k", 3), batch=spec.get("batch", 4),
         pool_capacity=spec.get("pool_capacity", 48), max_steps=50_000,
         spill=spec.get("spill", "host"), spill_dir=spec.get("spill_dir"),
-        steps_per_sync=spec.get("T", 1),
+        shards=spec.get("shards", 1), steps_per_sync=spec.get("T", 1),
+        sync_every=spec.get("K", 1),
         checkpoint_every=spec["checkpoint_every"] if checkpointed else 0,
         checkpoint_dir=spec["ckpt_dir"] if checkpointed else None)
 
@@ -120,16 +125,33 @@ def _arm_kill_in_commit(n: int):
     CheckpointManager._commit = commit
 
 
-def main(argv=None) -> int:
-    from repro_torch.core.engine import Engine, EngineConfig
+def build_engine(spec: dict, checkpointed: bool, ref: bool = False):
+    """The reference's or the port's ``Engine`` (1 shard) or
+    ``ShardedEngine`` (more) for ``spec``."""
+    if ref:
+        from repro.core.engine import Engine, EngineConfig
+        from repro.distributed import ShardedEngine
+    else:
+        from repro_torch.core.engine import Engine, EngineConfig
+        from repro_torch.distributed import ShardedEngine
+    cfg = EngineConfig(**engine_config(spec, checkpointed))
+    return (ShardedEngine if cfg.shards > 1 else Engine)(
+        make_workload(spec["kind"], spec["seed"], ref=ref), cfg)
 
+
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--spec", required=True, help="JSON workload spec")
-    ap.add_argument("--mode", required=True, choices=("crash", "resume"))
+    ap.add_argument("--mode", required=True,
+                    choices=("crash", "resume", "oracles"))
     args = ap.parse_args(argv)
     spec = json.loads(args.spec)
-    eng = Engine(make_workload(spec["kind"], spec["seed"]),
-                 EngineConfig(**engine_config(spec, checkpointed=True)))
+    if args.mode == "oracles":    # {name: spec} -> the reference's results
+        print("RESULT " + json.dumps({
+            name: result_dict(build_engine(s, False, ref=True).run())
+            for name, s in spec.items()}), flush=True)
+        return 0
+    eng = build_engine(spec, checkpointed=True)
     if args.mode == "crash":
         if spec.get("kill_in_commit"):
             _arm_kill_in_commit(int(spec["kill_in_commit"]))
@@ -146,17 +168,8 @@ def main(argv=None) -> int:
 
 
 # ------------------------------------------------------------ the parent
-def _reference_oracle(spec: dict) -> dict:
-    """The reference engine's uninterrupted run of ``spec``."""
-    from repro.core.engine import Engine, EngineConfig
-    return result_dict(Engine(make_workload(spec["kind"], spec["seed"],
-                                            ref=True),
-                              EngineConfig(**engine_config(
-                                  spec, checkpointed=False))).run())
-
-
-def _run_child(spec: dict, mode: str, timeout: int = 300):
-    env = dict(os.environ)
+def _run_child(spec: dict, mode: str, timeout: int = 300, env=None):
+    env = dict(os.environ, **(env or {}))
     env["PYTHONPATH"] = SRC
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--spec",
@@ -169,10 +182,9 @@ def _run_child(spec: dict, mode: str, timeout: int = 300):
     return proc.returncode, result, proc.stderr
 
 
-def _crash_resume_cycle(tmp_path, spec, kill, second_kill=None):
+def _crash_resume_cycle(tmp_path, spec, oracle, kill, second_kill=None):
     spec = dict(spec, ckpt_dir=str(tmp_path / "ckpt"),
                 spill_dir=str(tmp_path / "spill_oracle"))
-    oracle = _reference_oracle(spec)
     assert any(k > np.iinfo(np.int32).min for k in oracle["result_keys"])
     steps = oracle["steps"]
     assert steps > spec["checkpoint_every"] + 2, steps
@@ -227,13 +239,55 @@ CELLS = {
         dict(kind="weighted-clique", seed=34, spill="disk", T=2,
              checkpoint_every=8),
         lambda steps: {"kill_at_step": _fuzz_step(104, 9, steps - 1)}, None),
+    # iso × 2 shards with stale bounds (K=2) and macro-steps (T=2): the
+    # per-shard queue snapshots and the one manifest restore together
+    "kill_at_step_2shards": (
+        dict(kind="iso", seed=35, spill="disk", shards=2, T=2, K=2,
+             checkpoint_every=8),
+        lambda steps: {"kill_at_step": _fuzz_step(105, 9, steps - 1)}, None),
+    # clique × 2 shards, host spill: SIGKILL inside a commit with sharded
+    # state — the shard{i} subdirs commit or vanish together
+    "kill_inside_commit_2shards": (
+        dict(kind="clique", seed=36, spill="host", shards=2, T=1, K=4,
+             checkpoint_every=8),
+        {"kill_in_commit": 2}, None),
+    # clique × 8 shards: a fuzzed mid-run kill
+    "kill_at_step_8shards": (
+        dict(kind="clique", seed=37, spill="disk", shards=8, T=2, K=2,
+             checkpoint_every=8),
+        lambda steps: {"kill_at_step": _fuzz_step(107, 9, steps - 1)}, None),
+    # weighted-clique × 8 shards: a kill inside a commit at scale
+    "kill_inside_commit_8shards": (
+        dict(kind="weighted-clique", seed=38, spill="host", shards=8, T=1,
+             K=1, checkpoint_every=8),
+        {"kill_in_commit": 2}, None),
 }
 
 
+@pytest.fixture(scope="module")
+def sharded_oracles():
+    """The reference's uninterrupted ShardedEngine runs of the sharded
+    cells, from one subprocess with 8 forced host devices."""
+    specs = {name: CELLS[name][0] for name in CELLS
+             if CELLS[name][0].get("shards", 1) > 1}
+    rc, result, err = _run_child(
+        specs, "oracles", timeout=600,
+        env=dict(XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                 JAX_PLATFORMS="cpu"))
+    assert rc == 0 and result is not None, err[-3000:]
+    return result
+
+
 @pytest.mark.parametrize("cell", sorted(CELLS))
-def test_crash_and_resume_equals_reference(tmp_path, cell):
+def test_crash_and_resume_equals_reference(tmp_path, request, cell):
     spec, kill, second_kill = CELLS[cell]
-    _crash_resume_cycle(tmp_path, spec, kill, second_kill)
+    if spec.get("shards", 1) > 1:
+        oracle = request.getfixturevalue("sharded_oracles")[cell]
+    else:
+        oracle = result_dict(build_engine(dict(
+            spec, spill_dir=str(tmp_path / "spill_oracle")), False,
+            ref=True).run())
+    _crash_resume_cycle(tmp_path, spec, oracle, kill, second_kill)
 
 
 if __name__ == "__main__":

@@ -8,14 +8,23 @@
 * one JSONL request file through both ``serve_discovery`` loops: equal
   response lines, the wall-clock fields aside (``latency_s`` and the
   straggler count, which times steps);
-* the port's differences, each answered as an error response: the
-  weighted-clique ``use_pallas`` rejection (the reference's), ``interpret``
-  not null, ``shards: 2`` (ROADMAP Queue 1, item 12c); and ``device=None``
-  raising without a card.
+* ``shards > 1`` requests (the sharded engine at T = 1, in macro-steps
+  with stale bounds, truncated, iso and weighted clique) through both
+  loops with equal response lines, and a checkpointed 2-shard request cut
+  by its budget and resumed through the service to the uninterrupted
+  answer.  The reference's sharded engine needs one JAX device a shard,
+  so its loop runs in one subprocess of this file under
+  ``XLA_FLAGS=--xla_force_host_platform_device_count=8``;
+* the port's differences: the weighted-clique ``use_pallas`` rejection
+  (the reference's) and ``interpret`` not null, each answered as an error
+  response; ``shards: 2`` answered on one device, where a one-device
+  reference answers an error; and ``device=None`` raising without a card.
 """
 import dataclasses
 import io
 import json
+import os
+import pathlib
 import subprocess
 import sys
 
@@ -284,14 +293,10 @@ def test_weighted_clique_rejects_kernel_path():
 
 @pytest.mark.parametrize("fields,words", [
     (dict(workload="clique", interpret=True), "has no meaning here"),
-    (dict(workload="clique", interpret=False), "has no meaning here"),
-    (dict(workload="clique", shards=2), "ROADMAP Queue 1, item 12c"),
-    (dict(workload="clique", shards=2, sync_every=2, steps_per_sync=2),
-     "item 12c")])
+    (dict(workload="clique", interpret=False), "has no meaning here")])
 def test_port_rejects_what_it_does_not_run(social, cite, fields, words):
-    """``interpret`` has no meaning on the port and ``shards > 1`` needs
-    the sharded engine: each is an error response, and the service goes
-    on serving the rest of the batch."""
+    """``interpret`` has no meaning on the port: an error response, and
+    the service goes on serving the rest of the batch."""
     svc = make_service(social, cite)
     bad, ok = svc.serve([
         DiscoveryRequest(graph="social", k=2, **fields),
@@ -440,7 +445,7 @@ def test_jsonl_stream_gives_the_reference_response_lines(tmp_path):
 def test_serve_cli_on_cpu(tmp_path):
     """``python -m repro_torch.launch.serve --device cpu``: one response
     line a request, the stderr summary, and a ``shards: 2`` request
-    answered with an error that names item 12 while the loop goes on."""
+    answered on the one device with the single-shard answer."""
     reqs = tmp_path / "r.jsonl"
     reqs.write_text("\n".join([
         json.dumps({"graph": "demo-social", "workload": "clique", "k": 3,
@@ -453,6 +458,122 @@ def test_serve_cli_on_cpu(tmp_path):
         timeout=300, env=_env())
     assert proc.returncode == 0, proc.stderr
     sharded, one = (json.loads(x) for x in proc.stdout.splitlines())
-    assert sharded["status"] == "error" and "item 12" in sharded["error"]
+    assert sharded["status"] == "ok", sharded
+    assert sharded["stats"]["syncs"] == sharded["stats"]["steps"] > 0
     assert one["status"] == "ok" and one["result_keys"] == [7, 6, 6]
+    assert (sharded["result_keys"], sharded["results"]) == \
+        (one["result_keys"], one["results"])
     assert "[serve] 2 requests" in proc.stderr
+
+
+# -------------------------------------------------------- sharded requests
+SHARDED_JSONL = [
+    {"graph": "demo-social", "workload": "clique", "k": 3, "shards": 2,
+     "request_id": "x2"},
+    {"graph": "demo-social", "workload": "clique", "k": 3, "shards": 2,
+     "steps_per_sync": 4, "sync_every": 2, "use_cache": False,
+     "request_id": "x2-T4-K2"},
+    {"graph": "demo-social", "workload": "clique", "k": 3, "shards": 2,
+     "step_budget": 7, "request_id": "x2-budget"},
+    {"graph": "demo-citeseer", "workload": "iso", "k": 3,
+     "q_edges": [[0, 1], [1, 2]], "q_labels": [0, 1, 0], "shards": 2,
+     "request_id": "iso-x2"},
+    {"graph": "demo-social", "workload": "weighted-clique", "k": 2,
+     "weights": [(v * 7) % 19 + 1 for v in range(200)], "shards": 8,
+     "steps_per_sync": 4, "sync_every": 2, "request_id": "weighted-x8"},
+    {"graph": "demo-citeseer", "workload": "pattern", "k": 2, "m_edges": 3,
+     "shards": 2, "request_id": "pattern-x2"},
+    {"graph": "demo-social", "workload": "clique", "k": 3,
+     "request_id": "x1"},
+]
+
+
+def _reference_child(out: str) -> None:
+    """The reference's serve loop over :data:`SHARDED_JSONL` (this file as
+    a script, 8 forced host devices), its response lines to ``out``."""
+    with open(out, "w") as f:
+        ref_serve(lines=[json.dumps(x) for x in SHARDED_JSONL], out=f,
+                  batch_size=4)
+
+
+@pytest.fixture(scope="module")
+def sharded_reference(tmp_path_factory):
+    """The reference's response lines for :data:`SHARDED_JSONL`, by
+    request id, wall-clock fields removed."""
+    out = tmp_path_factory.mktemp("service_reference") / "lines.jsonl"
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ,            # a stripped env can stall JAX start-up
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [str(repo / "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, __file__, str(out)], env=env,
+                          cwd=repo, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [_strip_wall_clock(x) for x in out.read_text().splitlines()]
+    assert len(lines) == len(SHARDED_JSONL)
+    return {line["request_id"]: line for line in lines}
+
+
+def test_sharded_requests_give_the_reference_response_lines(
+        sharded_reference):
+    """Every ``shards > 1`` request through the port's loop: the reference
+    loop's response line (under forced devices), ``latency_s`` and
+    ``straggler_steps`` removed; the pattern request the reference's
+    error."""
+    out = io.StringIO()
+    serve_discovery(lines=[json.dumps(x) for x in SHARDED_JSONL], out=out,
+                    batch_size=4, device="cpu")
+    got = [_strip_wall_clock(x) for x in out.getvalue().splitlines()]
+    assert [g["request_id"] for g in got] == \
+        [x["request_id"] for x in SHARDED_JSONL]
+    for g in got:
+        assert g == sharded_reference[g["request_id"]], g["request_id"]
+    by_id = {g["request_id"]: g for g in got}
+    assert by_id["pattern-x2"]["status"] == "error"
+    assert by_id["x2-budget"]["terminated"] == "step_budget"
+    assert by_id["x2-budget"]["stats"]["steps"] == 7
+    for name in ("x2", "x2-T4-K2", "iso-x2", "weighted-x8"):
+        assert by_id[name]["status"] == "ok" and by_id[name]["results"]
+    # one exchange a step at K = 1, one a segment of 2 at K = 2
+    assert by_id["x2"]["stats"]["syncs"] == by_id["x2"]["stats"]["steps"]
+    stale = by_id["x2-T4-K2"]["stats"]
+    assert stale["syncs"] == -(-stale["steps"] // 2)
+    assert stale["host_syncs"] < stale["steps"]
+    assert (by_id["x2"]["result_keys"], by_id["x2"]["results"]) == \
+        (by_id["x1"]["result_keys"], by_id["x1"]["results"])
+
+
+@pytest.mark.parametrize("T,K", [(1, 1), (4, 2)])
+def test_sharded_request_resumes_through_the_service(sharded_reference,
+                                                     tmp_path, T, K):
+    """A checkpointed 2-shard request cut by its step budget (at a
+    macro-step's end), then resumed with the full budget by a new service:
+    the reference's uninterrupted answer and counters."""
+    from repro_torch.launch.serve import make_demo_registry
+    want = sharded_reference["x2" if T == 1 else "x2-T4-K2"]
+    base = dict(graph="demo-social", workload="clique", k=3, shards=2,
+                steps_per_sync=T, sync_every=K, checkpoint_every=4,
+                checkpoint_dir=str(tmp_path / "ck"), use_cache=False)
+    cut = DiscoveryService(registry=make_demo_registry(), device="cpu").query(
+        DiscoveryRequest(**base, step_budget=8))
+    assert cut.status == "ok" and cut.terminated == "step_budget"
+    assert cut.stats["steps"] == 8
+    steps = sorted(os.listdir(tmp_path / "ck"))
+    assert steps[-1] == "step_00000008"
+    manifest = json.loads((tmp_path / "ck" / steps[-1] / "manifest.json")
+                          .read_text())
+    assert manifest["extra"]["kind"] == "sharded_engine"
+    assert manifest["extra"]["shards"] == 2
+    svc = DiscoveryService(registry=make_demo_registry(), device="cpu")
+    done = svc.query(DiscoveryRequest(**base, resume=True))
+    assert done.status == "ok" and done.terminated == "complete"
+    got = _strip_wall_clock(json.dumps(done.to_dict()))
+    for field in ("result_keys", "results", "stats", "workload"):
+        assert got[field] == want[field], field
+    assert svc.engine_steps_total == want["stats"]["steps"] - 8
+
+
+if __name__ == "__main__":
+    _reference_child(sys.argv[1])

@@ -1,11 +1,12 @@
 """The port's sharded engine (``repro_torch.distributed``) on the CPU against
 the reference's ``ShardedEngine``: byte for byte on result_keys /
 result_states and on the pools and result sets after every step or
-macro-step (the global layout item 12c's checkpoint will save), with the
+macro-step (the global layout the sharded checkpoint saves), with the
 threshold and the pool occupancies the host holds there, equal on every
 ``EngineResult`` counter and every ``per_shard`` list —
 tests/test_distributed_engine.py's clique and iso cases at 1, 2 and 8
-shards, its skewed case (spill, refill, rebalance, late pruning) at 2 and
+shards, tests/test_labeled.py's labeled iso with both label filters at 1,
+2 and 8 shards, its skewed case (spill, refill, rebalance, late pruning) at 2 and
 8 with host and disk spill, and seeded random small configs (k, B, C,
 ``max_children``, ``max_steps`` truncation, odd shard counts); then the
 same in macro-steps (``steps_per_sync``) with stale bounds
@@ -21,8 +22,8 @@ tests/test_distributed_engine.py's ``_run_forced`` does), which writes
 each case's result to a temporary directory; the port runs each case in
 the test process.  Also here: ``sharded_bound`` against the reference's
 collective, ``shards=1`` against the port's ``Engine``, one scoring call a
-shard a step, the disk spill's ``shard{i}`` directories left empty, and the
-guards that name ROADMAP item 12c.
+shard a step, and the disk spill's ``shard{i}`` directories left empty.
+The sharded checkpoint is tests/test_torch_sharded_checkpoint.py's.
 """
 import dataclasses
 import hashlib
@@ -42,12 +43,14 @@ from repro.core.clique import make_clique_computation as ref_make_clique
 from repro.core.graph import GraphStore as RefGraphStore
 from repro.core.iso import build_iso_index as ref_build_iso_index
 from repro.core.iso import make_iso_computation as ref_make_iso
+from repro.core.labels import LabelPredicate as RefLabelPredicate
 from repro.data import synthetic_graphs as ref_gen
 from repro_torch.core import engine
 from repro_torch.core.api import NEG
 from repro_torch.core.clique import make_clique_computation
 from repro_torch.core.graph import GraphStore
 from repro_torch.core.iso import build_iso_index, make_iso_computation
+from repro_torch.core.labels import LabelPredicate
 from repro_torch.data import synthetic_graphs as gen
 from repro_torch.distributed import ShardedEngine
 
@@ -63,12 +66,16 @@ TRIANGLE = ([(0, 1), (1, 2), (0, 2)], [1, 1, 1])
 # vertices 0-22 of densifying_graph(96, 500, seed=3), tiny pools
 SKEWED_CFG = dict(k=3, batch=8, pool_capacity=64, max_steps=50_000)
 SKEWED_MACRO = dict(steps_per_sync=4, sync_every=2, record_bound_trace=True)
+# tests/test_labeled.py's sharded labeled iso
+LABELED_PREDICATE = {"vertex_any_of": [1, 2],
+                     "q_any_of": [[1, 2], [1], [1, 2]]}
+LABEL_FILTERS = ("pushdown", "post")
 
 
 def _cases() -> dict:
     """name -> case: ``graph`` (generator name and arguments, or
-    "skewed"), ``hops`` for the iso triangle, ``shards`` and the
-    EngineConfig fields."""
+    "skewed"), ``hops`` for the iso triangle (``label_filter`` under
+    :data:`LABELED_PREDICATE`), ``shards`` and the EngineConfig fields."""
     cases = {}
     for s in (1, 2, 8):
         cases[f"clique-x{s}"] = dict(
@@ -77,6 +84,11 @@ def _cases() -> dict:
         cases[f"iso-x{s}"] = dict(
             graph=("labeled_graph", (60, 150, 3, 5)), hops=2, shards=s,
             cfg=dict(k=3, batch=16, pool_capacity=1024, max_steps=50_000))
+        for lf in LABEL_FILTERS:
+            cases[f"labeled-{lf}-x{s}"] = dict(
+                graph=("labeled_graph", (50, 160, 3, 7)), hops=2, shards=s,
+                label_filter=lf,
+                cfg=dict(k=4, batch=16, pool_capacity=1024, max_steps=50_000))
     for s in (2, 8):
         for spill in ("host", "disk"):
             cases[f"skewed-{spill}-x{s}"] = dict(
@@ -156,12 +168,18 @@ def _computation(case: dict, ref: bool):
         fn, args = case["graph"]
         g = getattr(ref_gen if ref else gen, fn)(*args)
     if "hops" in case:
+        labeled = {}
+        if "label_filter" in case:
+            labeled = dict(predicate=(RefLabelPredicate if ref
+                                      else LabelPredicate).from_spec(
+                LABELED_PREDICATE), label_filter=case["label_filter"])
         if ref:
             return ref_make_iso(g, *TRIANGLE,
-                                ref_build_iso_index(g, max_hops=case["hops"]))
+                                ref_build_iso_index(g, max_hops=case["hops"]),
+                                **labeled)
         return make_iso_computation(
             g, *TRIANGLE, build_iso_index(g, case["hops"], device="cpu"),
-            device="cpu")
+            device="cpu", **labeled)
     return ref_make_clique(g) if ref else make_clique_computation(
         g, device="cpu")
 
@@ -302,6 +320,21 @@ def test_skewed_macro_case_with_bound_traces(reference):
         bound_fresh=[fresh, fresh])
 
 
+def test_labeled_iso_parity_sharded(reference, port_runs):
+    """tests/test_labeled.py's sharded case: labeled top-k is
+    byte-identical across the two label filters and 1, 2 and 8 shards, in
+    the port as in the reference."""
+    names = [name for name in CASES if name.startswith("labeled-")]
+    assert len(names) == 6
+    first = reference[names[0]][1]
+    assert (first["final_keys"] != NEG).any()
+    for name in names:
+        for arrays in (reference[name][1], port_runs(name)[1]):
+            for key in ("final_keys", "final_states"):
+                assert arrays[key].tobytes() == first[key].tobytes(), \
+                    (name, key)
+
+
 def test_random_cases_cover_truncation_and_odd_shard_counts():
     cases = [c for name, c in CASES.items() if name.startswith("random")]
     assert any(c["cfg"]["max_steps"] < 50_000 for c in cases)
@@ -416,22 +449,6 @@ def test_every_shard_scores_every_step():
 
 
 # ------------------------------------------------------------------ guards
-@pytest.mark.parametrize("call", ["save_checkpoint", "resume", "run_every",
-                                  "run_resume"])
-def test_sharded_checkpoint_names_item_12c(call, tmp_path):
-    cfg = engine.EngineConfig(k=3, batch=4, pool_capacity=32, shards=2,
-                              checkpoint_dir=str(tmp_path),
-                              checkpoint_every=4 if call == "run_every" else 0)
-    eng = ShardedEngine(_clique_comp(), cfg)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        if call == "save_checkpoint":
-            eng.save_checkpoint(None, eng.start())
-        elif call == "resume":
-            eng.resume(str(tmp_path))
-        else:
-            eng.run(resume=call == "run_resume")
-
-
 @pytest.mark.parametrize("fields", [dict(shards=0), dict(sync_every=0)])
 def test_bad_counts_raise_value_error(fields):
     with pytest.raises(ValueError, match="must be >= 1"):
