@@ -21,7 +21,11 @@ each (plus detail):
    ``ptxas``' registers and spill bytes of each, the other libraries'
    registers and spill bytes on lines of their own (it fails where a bf16
    or fp32 attention kernel has no ``HGMMA`` or no ``UTMALDG``, or where
-   the DP = 128 kernel of either dtype, the Llama shape's, spills);
+   the DP = 128 kernel of either dtype, the Llama shape's, spills); for
+   ``masked_intersect``'s tensor-core kernel, the count of ``BGMMA``
+   (1-bit wgmma) instructions in the SASS of each of its instances with
+   their registers and spills (it fails where one has no ``BGMMA``, or
+   where ``ptxas`` reports its wgmmas serialized);
 2. each kernel against its plain version on the card at ragged shapes
    (``masked_intersect`` and ``embedding_bag`` exact, ``segment_matmul``
    within 1e-4 and bit for bit across two calls, ``flash_attention``
@@ -32,10 +36,19 @@ each (plus detail):
    CSR build (``csr_by_node``) bit for bit against ``edges_by_node`` on
    random, sorted, one-node and all-dropped ``dst``, and one
    ``segment_matmul`` call shown to be one C call with no sort, search or
-   host read; ``masked_intersect``'s two kernels (the 64 x 64 tile and
-   the row-streaming kernel, each forced) and the call its plan picks,
-   all exact, at every ragged shape, at the pattern probe's shapes
-   (masked, one all-ones column: 8 and 1,024 rows of 1,024 words, 1,024
+   host read; ``masked_intersect``'s three kernels (the tensor-core mma
+   kernel, the 64 x 64 tile and the row-streaming kernel, each forced)
+   and the call its plan picks, all exact, at every ragged shape; at the
+   main shape the planned call (the mma kernel) and the tile on random
+   and on all-ones words, masked and not, with the tile's time, the
+   bytes bound beside the int8 operations' time and the popcount bound,
+   and ``torch._int_mm`` on the operands expanded to 0/1 bytes (1 GiB; a
+   yardstick the port never calls) exact and timed; the mma kernel at
+   4,194,241 rows x 65 columns x 1 word (more row tiles than one CUDA
+   grid dimension holds); it fails where the mma kernel is not faster
+   than the tile there; all
+   three kernels at the pattern probe's shapes (masked, one all-ones
+   column: 8 and 1,024 rows of 1,024 words, 1,024
    of 256, 1,000 of 104), each also from operands one word past a
    16-byte boundary, and at 4,194,305 rows of one word (past the 65,535
    row tiles of one CUDA grid dimension; the row kernel's one grid); at
@@ -43,8 +56,9 @@ each (plus detail):
    (``queued_ms``) beside the plain version's and the bound, and the
    call's from an idle card (the host's enqueue included); it fails
    where the planned kernel is slower than the plain version there.
-   Then the cut-over sweep: both kernels exact and timed at 1,024 x N x
-   1,024, masked, N = 1 to 64, beside the plan's cut-over;
+   Then the cut-over sweep: the three kernels exact and timed at 1,024 x
+   N x 1,024, masked, N = 1 to 64 (32 and 33 among them), beside the
+   plan's cut-over;
 3. the quickstart config, the spill probe (at ``steps_per_sync`` 1 and
    16) and a small iso run through the masked kernel (the reference's
    ``tests/test_kernels.py`` case, at ``steps_per_sync`` 1 and 16) on
@@ -202,7 +216,9 @@ line (wall, counters, launches, no-op inner steps, spans, peak memory).
 The line before the last is the kernels' JSON record (each kernel's fp32
 numbers, and its bf16 numbers under ``bf16`` where phase 6 runs both,
 each with its own launch count; ``masked_intersect``'s mask-free numbers
-from phases 2 and 4, its masked form's at the iso shape under ``masked``
+from phases 2 and 4 (the planned kernel under ``kernel``, the tile's
+time and the ``torch._int_mm`` yardstick beside),
+its masked form's at the iso shape under ``masked``
 with phase 9's launches, at the pattern probe's shapes under
 ``pattern_probes`` (the row kernel's times, the tile's beside them), the
 cut-over sweep under ``cutover`` with the plan's ``rows_max_cols``, and
@@ -344,12 +360,17 @@ PROBE_SHAPES = ((8, 1, 1024), (1024, 1, 1024), (1024, 1, 256),
 PROBE_SHAPE = (1024, 1, 1024)
 TIMED_PROBE_SHAPES = ((1024, 1, 1024), (1024, 1, 256))
 TALL_SHAPE = ((1 << 22) + 1, 1, 1)
-# the row kernel's cut-over: the tile and the row kernel timed at Ep =
-# 1,024 rows of 1,024 words, masked, on N random columns
-CUTOVER_SWEEP = (1, 2, 4, 8, 16, 32, 64)
+# the mma kernel past 65,535 row tiles of 64 (its grid is one-dimensional)
+TALL_MMA_SHAPE = (65535 * 64 + 1, 65, 1)
+# the row kernel's cut-over: the three kernels timed at Ep = 1,024 rows
+# of 1,024 words, masked, on N random columns (the plan's cut-over, 32,
+# and both sides of it)
+CUTOVER_SWEEP = (1, 2, 4, 8, 16, 32, 33, 48, 64)
 # cycles of the spin kernel queued ahead of a timed call (about 2.5 ms at
-# 1.98 GHz, longer than any timed call takes the host to enqueue)
+# 1.98 GHz, longer than a timed call takes the host to enqueue unless the
+# host stalls), and how far it may grow on a rep whose enqueue outlasts it
 SPIN_CYCLES = 5_000_000
+SPIN_GROWTH_MAX = 64
 
 # phase 3: tests/test_kernels.py's pattern case (M = 3, k = 3), with the
 # reference package's answer and counters (CPU JAX, use_pallas False and
@@ -397,14 +418,18 @@ PATTERN_CELLS = {
 }
 PATTERN_M = dict(m_edges=3, k=3)
 
-# the scoring kernel's name in a profiler trace (csrc/masked_intersect.cu)
+# the scoring kernel's name in a profiler trace (csrc/masked_intersect.cu):
+# the stem of all three, and the tensor-core kernel's own
 MI_KERNEL = "masked_intersect_kernel"
+MI_MMA_KERNEL = "masked_intersect_kernel_mma"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 POPC_PER_CLOCK_PER_SM = 16       # CUDA C++ Programming Guide, CC 9.0
 # H100 SXM dense peaks (NVIDIA data sheet): fp32 outside the tensor cores,
 # bf16 and tf32 on the tensor cores
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
+# and int8 on the tensor cores (operations a second)
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12,
+              "int8": 1979e12}
 
 # the co-workload kernels: ragged sweeps (tests/test_kernels.py's among
 # them) before the full-width shape
@@ -482,32 +507,47 @@ def queued_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     ahead of the start event keeps the card busy while the host enqueues
     ``fn``, so the events read its kernels back to back and not the host's
     enqueue (which :func:`cuda_ms` reads too where the call is shorter
-    than its enqueue).  Fails if an enqueue outlasted the spin."""
+    than its enqueue).  A rep whose enqueue outlasted the spin (a host
+    that stalled: its events may have read the enqueue) is dropped and
+    timed again behind a spin twice as long; fails if an enqueue still
+    outlasts a spin of ``SPIN_GROWTH_MAX`` times the first."""
     import torch
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(SPIN_CYCLES)
-    end.record()
-    end.synchronize()
-    spin_ms = start.elapsed_time(end)
-    times = []
-    for _ in range(reps):
+
+    def spin_ms_of(cycles: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    cycles = SPIN_CYCLES
+    spin_ms = spin_ms_of(cycles)
+    times = []
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         t0 = time.perf_counter()
         start.record()
         fn()
         end.record()
         host_ms = 1e3 * (time.perf_counter() - t0)
         end.synchronize()
-        if host_ms > 0.8 * spin_ms:
+        if host_ms <= 0.8 * spin_ms:
+            times.append(start.elapsed_time(end))
+            continue
+        if cycles >= SPIN_CYCLES * SPIN_GROWTH_MAX:
             fail(f"queued_ms: the enqueue took {host_ms:.3f} ms, the spin "
                  f"ahead of it {spin_ms:.3f} ms")
-        times.append(start.elapsed_time(end))
+        print(f"[timing] queued_ms: an enqueue took {host_ms:.3f} ms behind "
+              f"a spin of {spin_ms:.3f} ms; that rep is timed again behind "
+              f"a spin twice as long")
+        cycles *= 2
+        spin_ms = spin_ms_of(cycles)
     return statistics.median(times)
 
 
@@ -587,6 +627,34 @@ def check_flash_build(log: str) -> None:
                  f"no TMA load: {ops}")
 
 
+def check_mma_build(log: str) -> None:
+    """Each instance of masked_intersect's tensor-core kernel runs on the
+    1-bit wgmma (``BGMMA`` in its SASS) and ``ptxas`` did not serialize
+    its wgmmas: fails otherwise."""
+    from repro_torch.kernels import build
+    sass = sass_counts(build.library_path("masked_intersect"), ("BGMMA",))
+    regs = ptxas_report(log)
+    found = {}                  # VEC -> (registers, spills, BGMMA)
+    for name, ops in sass.items():
+        if MI_MMA_KERNEL in name:
+            vec = re.search(r"ILb(\d)E", name).group(1) == "1"
+            found[vec] = (*regs.get(name, ("?", "?")), ops["BGMMA"])
+    serialized = [line for line in log.splitlines()
+                  if "serialized" in line and MI_MMA_KERNEL in line]
+    print("[1 env] masked_intersect mma SASS: " + "; ".join(
+        f"VEC={vec}: {r} registers, {sp} spill bytes, BGMMA={n}"
+        for vec, (r, sp, n) in sorted(found.items())) +
+        f"; ptxas serialization warnings: {len(serialized)}")
+    if not found:
+        fail("no masked_intersect_kernel_mma in the library's SASS")
+    for key, (_, _, n) in found.items():
+        if not n:
+            fail(f"the mma kernel (VEC = {key}): no BGMMA (1-bit wgmma) "
+                 f"in its SASS")
+    if serialized:
+        fail(f"ptxas serialized the mma kernel's wgmmas: {serialized[0]}")
+
+
 def phase_environment():
     import torch
     from repro_torch.kernels import build
@@ -609,34 +677,64 @@ def phase_environment():
             print(f"  ptxas {kname} {kernel}: {regs} registers, "
                   f"{spill} spill bytes")
     check_flash_build(report["flash_attention"]["log"])
+    check_mma_build(report["masked_intersect"]["log"])
     return dict(name=name, smi=smi, sms=props.multi_processor_count,
                 clock_hz=max_clock_mhz * 1e6)
 
 
-def masked_intersect_bound_ms(b: int, n: int, w: int, masked: bool,
-                              env: dict):
-    """Least time for one call: bytes read once and written once over the
-    HBM rate, or the B*N*W popcounts over the card's popcount rate."""
-    nbytes = 4 * (b * w * (2 if masked else 1) + n * w + b * n)
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * b * n * w / (POPC_PER_CLOCK_PER_SM * env["sms"]
-                                * env["clock_hz"])
-    return max(bytes_ms, ops_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
+def masked_intersect_bound_ms(b: int, n: int, w: int, masked: bool):
+    """Least time for one call: its operands read once and its counts
+    written once, over the HBM rate.  The operations set no larger
+    figure: the mma kernel's 1-bit wgmma has no published rate and runs
+    at about 8x the int8 one (``scripts/mi_ceilings.py``), so their time
+    at a published peak (:func:`int8_ops_ms`) is no least time."""
+    return 1e3 * 4 * (b * w * (2 if masked else 1) + n * w + b * n) \
+        / HBM_BYTES_PER_S, "bytes"
 
 
-def check_mi(what: str, a, cols, mask, want=None) -> int:
-    """The planned call and both kernels forced (the tile, and the row
-    kernel as :func:`rows_plan` would run it) exactly equal to the plain
-    version; returns the largest difference (0)."""
+def int8_ops_ms(b: int, n: int, w: int) -> float:
+    """The 2 B N K operations of the 0/1 product over K = 32 W bits at the
+    card's dense int8 tensor-core rate, the narrowest type the data sheet
+    rates: printed beside the mma kernel's time, not its bound (the 1-bit
+    wgmma it runs on beats it)."""
+    return 1e3 * 2 * b * n * 32 * w / PEAK_FLOPS["int8"]
+
+
+def popc_bound_ms(b: int, n: int, w: int, env: dict) -> float:
+    """The B N W word popcounts over the CUDA cores' popcount rate: the
+    bound of the tile, which counts on them."""
+    return 1e3 * b * n * w / (POPC_PER_CLOCK_PER_SM * env["sms"]
+                              * env["clock_hz"])
+
+
+def zero_one_bytes(words):
+    """[R, W] int32 words as [R, 32 W] int8 0/1 bytes (bit j of word w at
+    32 w + j), in chunks of rows."""
+    import torch
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    out = torch.empty((words.shape[0], 32 * words.shape[1]),
+                      dtype=torch.int8, device=words.device)
+    for r in range(0, words.shape[0], 2048):
+        bits = (words[r:r + 2048, :, None] >> shifts) & 1
+        out[r:r + 2048] = bits.reshape(bits.shape[0], -1)
+    return out
+
+
+def check_mi(what: str, a, cols, mask, want=None):
+    """The planned call and the three kernels forced (the mma kernel and
+    the row kernel as :func:`mma_plan` and :func:`rows_plan` would run
+    them, and the tile) exactly equal to the plain version; returns the
+    plan."""
     import torch
     from repro_torch.kernels import masked_intersect as mi
     if want is None:
         want = mi.masked_intersect_plain(a, cols, mask)
     n, w = cols.shape
     operands = (a, cols) if mask is None else (a, cols, mask)
-    planned = mi._plan(n, w, mi._aligned(*operands))
-    for plan in (None, mi.TILE, mi.rows_plan(n, w, mi._aligned(*operands))):
+    aligned = mi._aligned(*operands)
+    planned = mi._plan(n, w, aligned)
+    for plan in (None, mi.mma_plan(w, aligned), mi.TILE,
+                 mi.rows_plan(n, w, aligned)):
         got = mi.masked_intersect(a, cols, mask, plan=plan)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
@@ -644,6 +742,99 @@ def check_mi(what: str, a, cols, mask, want=None) -> int:
             fail(f"masked_intersect {what} {plan or planned}: max abs err "
                  f"{err}")
     return planned
+
+
+def main_shape_kernels(env: dict, words) -> dict:
+    """masked_intersect at the main path's shape: the planned call (the
+    mma kernel) and the tile exact on random and all-ones words, masked
+    and not, timed beside the plain version, the bytes bound, the int8
+    operations' time, the popcount bound and ``torch._int_mm`` on the
+    words as 0/1 bytes; then the mma kernel past 65,535 row tiles.  Returns the mask-free record."""
+    import torch
+    from repro_torch.kernels import masked_intersect as mi
+    b, n, w = MAIN_SHAPE
+    record = None
+    for masked in (False, True):
+        for fill in ("random", "all-ones"):
+            if fill == "random":
+                a, cols = words(b, w), words(n, w)
+                mask = words(b, w) if masked else None
+            else:
+                a = torch.full((b, w), -1, dtype=torch.int32, device="cuda")
+                cols = torch.full((n, w), -1, dtype=torch.int32,
+                                  device="cuda")
+                mask = a.clone() if masked else None
+            want = torch.full((b, n), 32 * w, dtype=torch.int32,
+                              device="cuda") if fill == "all-ones" \
+                else mi.masked_intersect_plain(a, cols, mask)
+            planned = mi._plan(n, w, True)
+            for plan in (None, mi.TILE):
+                got = mi.masked_intersect(a, cols, mask, plan=plan)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"masked_intersect B={b} N={n} W={w} mask={masked} "
+                         f"{fill} {plan or planned}: differs from its plain "
+                         f"version")
+            line = (f"[2 kernel] masked_intersect B={b} N={n} W={w} "
+                    f"mask={masked} {fill}: exact ({planned.variant} planned "
+                    f"and the tile)")
+            if fill == "random":
+                ms = queued_ms(lambda: mi.masked_intersect(a, cols, mask))
+                tile_ms = queued_ms(
+                    lambda: mi.masked_intersect(a, cols, mask, plan=mi.TILE))
+                # from an idle card, the host's enqueue in it (as earlier
+                # records of this shape were timed)
+                call_ms = cuda_ms(
+                    lambda: mi.masked_intersect(a, cols, mask), 20)
+                plain_ms = cuda_ms(
+                    lambda: mi.masked_intersect_plain(a, cols, mask), 3, 1)
+                bound_ms, bound_by = masked_intersect_bound_ms(b, n, w,
+                                                               masked)
+                popc_ms = popc_bound_ms(b, n, w, env)
+                # the yardstick: one int8 product of the 0/1 bytes
+                rows = zero_one_bytes(a if mask is None else a & mask)
+                cols8 = zero_one_bytes(cols)
+                int_mm = torch._int_mm(rows, cols8.t())
+                if not torch.equal(int_mm, want):
+                    fail("torch._int_mm of the 0/1 bytes differs from the "
+                         "plain version")
+                int8_mm_ms = queued_ms(
+                    lambda: torch._int_mm(rows, cols8.t()))
+                del rows, cols8, int_mm
+                line += (f" ms={ms:.4f} tile_ms={tile_ms:.4f} "
+                         f"call_ms={call_ms:.4f} "
+                         f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
+                         f"({bound_by}) int8_ops_ms={int8_ops_ms(b, n, w):.4f}"
+                         f" popc_bound_ms={popc_ms:.4f} "
+                         f"int8_mm_ms={int8_mm_ms:.4f} library_ms=null "
+                         f"({env['smi']})")
+                if not masked:      # the main path calls the mask-free form
+                    record = dict(kernel=MI_MMA_KERNEL, variant="mma",
+                                  ms=ms, tile_ms=tile_ms, call_ms=call_ms,
+                                  plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  int8_mm_ms=int8_mm_ms)
+                else:
+                    record["masked_ms"] = ms
+                    record["masked_tile_ms"] = tile_ms
+                if ms >= tile_ms:
+                    fail(f"masked_intersect B={b} N={n} W={w} mask={masked}:"
+                         f" the planned {planned.variant} kernel "
+                         f"({ms:.4f} ms) is not faster than the tile "
+                         f"({tile_ms:.4f} ms)")
+            print(line)
+    # more row tiles of 64 than one grid dimension holds, on the mma kernel
+    b, n, w = TALL_MMA_SHAPE
+    a, cols = words(b, w), words(n, w)
+    want = mi.masked_intersect_plain(a, cols)
+    got = mi.masked_intersect(a, cols, plan=mi.mma_plan(w, True))
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"masked_intersect B={b} N={n} W={w} (mma): differs from its "
+             f"plain version")
+    print(f"[2 kernel] masked_intersect B={b} N={n} W={w}: exact (mma, "
+          f"{-(-b // 64)} row tiles in one grid)")
+    return record
 
 
 def phase_kernels(env: dict) -> dict:
@@ -657,38 +848,16 @@ def phase_kernels(env: dict) -> dict:
         x = rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
         return torch.from_numpy(x.view(np.int32)).cuda()
 
-    record = None
-    for (b, n, w) in RAGGED_SHAPES + (MAIN_SHAPE,):
+    for (b, n, w) in RAGGED_SHAPES:
         for masked in (False, True):
             a, cols = words(b, w), words(n, w)
             mask = words(b, w) if masked else None
-            what = f"B={b} N={n} W={w} mask={masked}"
-            if (b, n, w) == MAIN_SHAPE:     # the planned call (the tile)
-                got = mi.masked_intersect(a, cols, mask)
-                want = mi.masked_intersect_plain(a, cols, mask)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    fail(f"masked_intersect {what}: differs from its plain "
-                         f"version")
-                planned = mi._plan(n, w, True)
-            else:
-                planned = check_mi(what, a, cols, mask)
-            line = f"[2 kernel] masked_intersect {what}: exact " \
-                   f"({planned.variant} planned" + \
-                   ("" if (b, n, w) == MAIN_SHAPE else ", both kernels") + ")"
-            if (b, n, w) == MAIN_SHAPE:
-                ms = cuda_ms(lambda: mi.masked_intersect(a, cols, mask), 20)
-                plain_ms = cuda_ms(
-                    lambda: mi.masked_intersect_plain(a, cols, mask), 3, 1)
-                bound_ms, bound_by = masked_intersect_bound_ms(
-                    b, n, w, masked, env)
-                line += (f" ms={ms:.4f} plain_ms={plain_ms:.3f} "
-                         f"bound_ms={bound_ms:.4f} ({bound_by}) "
-                         f"library_ms=null")
-                if not masked:      # the main path calls the mask-free form
-                    record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by)
-            print(line)
+            planned = check_mi(f"B={b} N={n} W={w} mask={masked}", a, cols,
+                               mask)
+            print(f"[2 kernel] masked_intersect B={b} N={n} W={w} "
+                  f"mask={masked}: exact ({planned.variant} planned, all "
+                  f"three kernels)")
+    record = main_shape_kernels(env, words)
     # the pattern probe's shapes: masked, one all-ones column; each also
     # from operands one word past a 16-byte boundary (one word a load)
     record["pattern_probes"] = []
@@ -703,8 +872,8 @@ def phase_kernels(env: dict) -> dict:
         check_mi(f"B={b} N={n} W={w} (probe, misaligned)", shifted, cols,
                  mask, shifted_want)
         line = f"[2 kernel] masked_intersect B={b} N={n} W={w} mask=True " \
-               f"(pattern probe): exact, both kernels, aligned and one " \
-               f"word off ({planned})"
+               f"(pattern probe): exact, all three kernels, aligned and " \
+               f"one word off ({planned})"
         if (b, n, w) in TIMED_PROBE_SHAPES:
             ms = queued_ms(lambda: mi.masked_intersect(a, cols, mask))
             tile_ms = queued_ms(
@@ -714,8 +883,7 @@ def phase_kernels(env: dict) -> dict:
             call_ms = cuda_ms(lambda: mi.masked_intersect(a, cols, mask), 20)
             tile_call_ms = cuda_ms(
                 lambda: mi.masked_intersect(a, cols, mask, plan=mi.TILE), 20)
-            bound_ms, bound_by = masked_intersect_bound_ms(b, n, w, True,
-                                                           env)
+            bound_ms, bound_by = masked_intersect_bound_ms(b, n, w, True)
             line += (f" ms={ms:.4f} tile_ms={tile_ms:.4f} "
                      f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
                      f"({bound_by}) library_ms=null; from an idle card "
@@ -742,15 +910,21 @@ def phase_kernels(env: dict) -> dict:
         rows = mi.rows_plan(n, w, True)
         rows_ms = queued_ms(
             lambda: mi.masked_intersect(a, cols, mask, plan=rows))
+        mma_ms = queued_ms(lambda: mi.masked_intersect(
+            a, cols, mask, plan=mi.mma_plan(w, True)))
         tile_ms = queued_ms(
             lambda: mi.masked_intersect(a, cols, mask, plan=mi.TILE))
-        record["cutover"].append(dict(n=n, rows_ms=rows_ms, tile_ms=tile_ms))
+        record["cutover"].append(dict(n=n, rows_ms=rows_ms, mma_ms=mma_ms,
+                                      tile_ms=tile_ms))
         print(f"[2 kernel] masked_intersect B={b} N={n} W={w} mask=True "
-              f"(cut-over sweep): exact, both kernels; rows_ms={rows_ms:.4f} "
+              f"(cut-over sweep): exact, all three kernels; "
+              f"rows_ms={rows_ms:.4f} mma_ms={mma_ms:.4f} "
               f"tile_ms={tile_ms:.4f} ({planned.variant} planned)")
-    won = [c["n"] for c in record["cutover"] if c["rows_ms"] < c["tile_ms"]]
+    won = [c["n"] for c in record["cutover"]
+           if c["rows_ms"] < min(c["mma_ms"], c["tile_ms"])]
     print(f"[2 kernel] masked_intersect cut-over: the row kernel is faster "
-          f"at N in {won}; the plan takes it up to N = {mi.ROWS_MAX_COLS}")
+          f"than both others at N in {won}; the plan takes it up to N = "
+          f"{mi.ROWS_MAX_COLS}")
     record["rows_max_cols"] = mi.ROWS_MAX_COLS
     record["max_abs_err"] = 0
     return record
@@ -906,9 +1080,9 @@ def phase_main_path() -> int:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = mi.launches
-    if mi.launches_by_variant != {"tile": launches, "rows": 0}:
+    if mi.launches_by_variant != {"mma": launches, "tile": 0, "rows": 0}:
         fail(f"the main path's launches by kernel: {mi.launches_by_variant}; "
-             f"its N = {g.n} columns take the tile")
+             f"its N = {g.n} columns take the mma kernel")
 
     members = np.random.default_rng(FULL_GRAPH["seed"]).choice(
         FULL_GRAPH["n"], FULL_GRAPH["clique_size"], replace=False)
@@ -1559,15 +1733,19 @@ def phase_iso(env: dict) -> dict:
         fail("masked_intersect at the iso shape differs from its plain "
              "version")
     ms = cuda_ms(lambda: mi.masked_intersect(rows, cols, mask), 20)
+    tile_ms = cuda_ms(
+        lambda: mi.masked_intersect(rows, cols, mask, plan=mi.TILE), 20)
     plain_ms = cuda_ms(lambda: mi.masked_intersect_plain(rows, cols, mask),
                        3, 1)
-    bound, bound_by = masked_intersect_bound_ms(b, n, w, True, env)
+    bound, bound_by = masked_intersect_bound_ms(b, n, w, True)
+    planned = mi._plan(n, w, True).variant
     print(f"[9 iso] masked_intersect (masked) B={b} N={n} W={w} against "
-          f"eye_table columns: exact, ms={ms:.4f} plain_ms={plain_ms:.3f} "
+          f"eye_table columns: exact, ms={ms:.4f} ({planned}) "
+          f"tile_ms={tile_ms:.4f} plain_ms={plain_ms:.3f} "
           f"bound_ms={bound:.4f} ({bound_by}) library_ms=null")
     return dict(launches=launches["kernel", 1], max_abs_err=0, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                library_ms=None,
+                tile_ms=tile_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=None,
                 launches_by_t={t: launches["kernel", t]
                                for t in (1, MACRO_T)}), \
         (first, [mapping for _, mapping in live], q_labels)
@@ -2961,7 +3139,10 @@ def main() -> int:
         launches=launches, max_abs_err=kernel["max_abs_err"],
         ms=kernel["ms"], plain_ms=kernel["plain_ms"],
         bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"],
-        library_ms=None,
+        library_ms=None, variant=kernel["variant"], kernel=kernel["kernel"],
+        tile_ms=kernel["tile_ms"], call_ms=kernel["call_ms"],
+        masked_ms=kernel["masked_ms"], masked_tile_ms=kernel["masked_tile_ms"],
+        int8_mm_ms=kernel["int8_mm_ms"],
         masked={k: v for k, v in iso.items() if k != "launches_by_t"},
         pattern_probes=kernel["pattern_probes"], cutover=kernel["cutover"],
         rows_max_cols=kernel["rows_max_cols"],

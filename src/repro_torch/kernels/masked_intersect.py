@@ -9,25 +9,35 @@ call shapes of the workloads are those of ``repro.kernels.masked_intersect``
 (clique cross counts, iso membership against ``eye_table`` columns, pattern
 pair probes).
 
-On the card, :func:`masked_intersect` launches one of two hand-written
+On the card, :func:`masked_intersect` launches one of three hand-written
 Hopper kernels in ``csrc/masked_intersect.cu``, which together replace the
 TPU kernel ``repro/kernels/masked_intersect.py::_kernel`` /
 ``::_kernel_masked``.  :func:`_plan` picks one per call from its shape and
 its pointers, here in Python, so that the CPU tests pin the choice:
 
-- the **tile** for calls wider than :data:`ROWS_MAX_COLS` columns (clique
-  and iso: B=64, N=32768, W=1024).  There the call does 2.15e9 AND+popcount
-  word operations on 143 MB of compulsory traffic, so ``__popc`` throughput
-  bounds it (0.51 ms at 16 popcounts per clock per SM, 132 SMs, 1.98 GHz;
-  the bytes alone take 0.04 ms).  Each block owns 64 rows x 64 columns,
-  loops over W in 32-word chunks staged in shared memory, and each thread
-  accumulates a 4 x 4 register tile of ``__popc`` sums.
+- the **mma** kernel for calls wider than :data:`ROWS_MAX_COLS` columns
+  (clique and iso: B=64, N=32768, W=1024).  The count is a product of 0/1
+  vectors over the K = 32 W bits, which Hopper's ``wgmma`` computes
+  exactly in its 1-bit form (``m64n64k256.s32.b1.b1.and.popc``: a
+  popcount of the AND over 256 bits a step, summed in int32) from the
+  packed words as they are.  At the clique shape its 143 MB bound it:
+  0.0426 ms at 3.35 TB/s.  The 2 B N K = 1.374e11 operations would take
+  0.0694 ms at the H100's 1,979 TOP/s of dense int8 (the narrowest type
+  NVIDIA gives a rate for), but the 1-bit form runs about 8x faster.
+  b's columns are the A operand, each thread's fragment read from shared
+  memory as words; (a & mask)'s 64 rows the B operand, ANDed once a
+  block by a producer warpgroup while two consumer warpgroups multiply.
+  Raw words stream in by ``cp.async`` (16 bytes a copy where
+  ``vector``), and a block owns 64 rows by :data:`MMA_COLS` columns.
+- the **tile**, the first port's 64 x 64 tile of ``__popc`` sums on the
+  CUDA cores (bound there by the popcount rate: 0.51 ms at the clique
+  shape), only for ``plan=TILE`` (the smoke run's yardstick).
 - the **row-streaming** kernel for at most :data:`ROWS_MAX_COLS` columns
   (the pattern probe: Ep <= 1,024 rows, one column, W words, masked).
-  That call is bound by bytes (8.4 MB at W=1024), and the tile would use
-  Ep / 64 SMs and leave 63 of its 64 columns empty.  Here ``lanes``
-  threads of a warp stream one row, 16 bytes a load where W and the
-  pointers allow it (``vector``), one word a load otherwise, over a
+  That call is bound by bytes (8.4 MB at W=1024), and a 64-column tile
+  would use Ep / 64 SMs and leave 63 of its 64 columns empty.  Here
+  ``lanes`` threads of a warp stream one row, 16 bytes a load where W and
+  the pointers allow it (``vector``), one word a load otherwise, over a
   one-dimensional grid of rows that fills the card; each lane keeps one
   sum per column (``cols`` of them a pass) and the row's lanes reduce them
   by shuffles.
@@ -57,13 +67,13 @@ PLAIN_MAX_ELEMENTS = 1 << 26
 #: kernel launches so far (the plain version does not count), and of them
 #: those of each kernel (:class:`Plan`'s ``variant``)
 launches = 0
-launches_by_variant = {"tile": 0, "rows": 0}
+launches_by_variant = {"mma": 0, "tile": 0, "rows": 0}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
-    launches_by_variant.update(tile=0, rows=0)
+    launches_by_variant.update(mma=0, tile=0, rows=0)
 
 
 def masked_intersect_plain(a_bits: torch.Tensor, b_bits: torch.Tensor,
@@ -107,21 +117,25 @@ def _check(a_bits, b_bits, mask_bits) -> None:
 
 
 #: the most columns a call may have to take the row-streaming kernel: the
-#: largest N at which it beat the tile in chip_smoke.py's phase 2 sweep
-#: (N = 1 to 64 at 1,024 rows x 1,024 words, masked; PERF.md)
-ROWS_MAX_COLS = 64
+#: largest N at which it beat the mma kernel in chip_smoke.py's phase 2
+#: sweep (N = 1 to 64 at 1,024 rows x 1,024 words, masked; PERF.md)
+ROWS_MAX_COLS = 32
 #: the most column sums a lane of the row kernel keeps in registers (its
 #: templates: powers of two up to this), and the most threads on one row
 ROW_MAX_SUMS = 32
 ROW_MAX_LANES = 32          # a warp
+#: columns of b a block of the mma kernel owns (two consumer warpgroups
+#: of two tiles of 64), the only value its C entry takes
+MMA_COLS = 256
 
 
 class Plan(NamedTuple):
     """Which kernel a call launches, and how."""
-    variant: str        # "tile" or "rows"
-    lanes: int          # rows: threads a row; 0 for the tile
-    vector: bool        # rows: 16-byte loads (else one word a load)
-    cols: int           # rows: column sums a lane keeps a pass; 0 for tile
+    variant: str        # "mma", "tile" or "rows"
+    lanes: int          # rows: threads a row; 0 otherwise
+    vector: bool        # rows, mma: 16-byte loads (else one word a load)
+    cols: int           # rows: column sums a lane keeps a pass; mma:
+                        # columns a block; 0 for the tile
 
 
 TILE = Plan("tile", 0, False, 0)
@@ -144,12 +158,19 @@ def rows_plan(n_cols: int, w: int, aligned: bool) -> Plan:
                 min(ROW_MAX_SUMS, _next_pow2(n_cols)))
 
 
+def mma_plan(w: int, aligned: bool) -> Plan:
+    """The mma kernel for rows of ``w`` words: 16-byte copies when ``w %
+    4 == 0`` and every operand's base pointer is 16-byte aligned
+    (``aligned``), one word a copy otherwise."""
+    return Plan("mma", 0, aligned and w % 4 == 0, MMA_COLS)
+
+
 def _plan(n_cols: int, w: int, aligned: bool) -> Plan:
     """The kernel for a call of ``n_cols`` columns of ``w`` words: the row
-    kernel up to :data:`ROWS_MAX_COLS` columns, the tile above."""
+    kernel up to :data:`ROWS_MAX_COLS` columns, the mma kernel above."""
     if n_cols <= ROWS_MAX_COLS:
         return rows_plan(n_cols, w, aligned)
-    return TILE
+    return mma_plan(w, aligned)
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -163,7 +184,7 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p)
-_VARIANTS = {"tile": 0, "rows": 1}
+_VARIANTS = {"tile": 0, "rows": 1, "mma": 2}
 
 
 def masked_intersect(a_bits: torch.Tensor, b_bits: torch.Tensor,
@@ -173,7 +194,7 @@ def masked_intersect(a_bits: torch.Tensor, b_bits: torch.Tensor,
 
     CUDA tensors go to a Hopper kernel (contiguous, 1 <= B, N, W < 2^31),
     the one :func:`_plan` picks unless ``plan`` names another (the smoke
-    run times both kernels at one shape so); CPU tensors go to
+    run times the kernels at one shape so); CPU tensors go to
     :func:`masked_intersect_plain`; anything else raises."""
     global launches
     _check(a_bits, b_bits, mask_bits)

@@ -142,11 +142,15 @@ PROBE_PLANS = {(8, 1, 1024): (32, True, 1), (1024, 1, 1024): (32, True, 1),
                ((1 << 22) + 1, 1, 1): (1, False, 1)}
 
 
-def test_plan_takes_the_tile_for_the_clique_and_iso_shapes():
+def test_plan_takes_the_mma_kernel_for_the_clique_and_iso_shapes():
     """The main path's N = 32,768 (clique cross counts without a mask, iso
-    membership against eye_table with one) stays on the 64 x 64 tile."""
-    assert mi._plan(32768, 1024, True) == mi.TILE
-    assert mi._plan(32768, 1024, False) == mi.TILE
+    membership against eye_table with one) takes the tensor-core mma
+    kernel, 256 columns a block, 16-byte copies where the pointers allow;
+    the 64 x 64 tile is reached only by asking for it (``plan=TILE``)."""
+    assert mi._plan(32768, 1024, True) == mi.Plan("mma", 0, True, 256)
+    assert mi._plan(32768, 1024, False) == mi.Plan("mma", 0, False, 256)
+    assert mi.TILE not in {mi._plan(n, w, al) for n in (65, 32768)
+                           for w in (1, 7, 1024, 1 << 20) for al in (0, 1)}
 
 
 @pytest.mark.parametrize("shape", sorted(PROBE_PLANS))
@@ -181,9 +185,87 @@ def test_plan_reads_one_word_a_load_from_a_misaligned_pointer():
 
 @pytest.mark.parametrize("w", [1, 7, 104, 256, 1024])
 def test_plan_cuts_over_at_k(w):
-    """Up to K columns the row kernel, above it the tile; the row kernel
-    keeps at most 32 column sums a lane and takes more passes beyond."""
+    """Up to K = 32 columns (where the row kernel beat the mma kernel in
+    the smoke run's sweep) the row kernel, above it the mma kernel; the
+    row kernel keeps at most 32 column sums a lane."""
+    assert K == 32
     assert mi._plan(K, w, True).variant == "rows"
-    assert mi._plan(K + 1, w, True) == mi.TILE
-    assert [mi._plan(n, w, True).cols for n in (1, 2, 3, 5, 17, 33, K)] == \
-        [1, 2, 4, 8, 32, 32, 32]
+    assert mi._plan(K + 1, w, True) == mi.Plan("mma", 0, w % 4 == 0, 256)
+    assert [mi._plan(n, w, True).cols for n in (1, 2, 3, 5, 17, K)] == \
+        [1, 2, 4, 8, 32, 32]
+
+
+# chip_smoke.py's ragged masked_intersect shapes (B, N, W), phase 2
+RAGGED_SHAPES = ((1, 1, 1), (1, 16, 1), (5, 257, 1), (7, 1, 2),
+                 (13, 100, 7), (32, 300, 4), (8, 128, 32), (67, 1000, 33))
+
+
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+@pytest.mark.parametrize("shift", [0, 1])
+def test_plan_at_the_ragged_shapes(shape, shift):
+    """Above K columns the mma kernel with 16-byte copies only where W %
+    4 == 0 and every operand starts on a 16-byte boundary (a view one word
+    into its storage does not); up to K the row kernel, as before."""
+    b, n, w = shape
+    store = torch.zeros(1 + b * w, dtype=torch.int32)
+    a = store[shift:shift + b * w].view(b, w)
+    mask = torch.zeros((b, w), dtype=torch.int32)
+    cols = torch.zeros((n, w), dtype=torch.int32)
+    aligned = mi._aligned(a, cols, mask)
+    assert aligned == (shift == 0)
+    plan = mi._plan(n, w, aligned)
+    if n <= K:
+        assert plan == mi.rows_plan(n, w, aligned)
+    else:
+        assert plan == mi.Plan("mma", 0, aligned and w % 4 == 0, 256)
+
+
+def _zero_one_product(a, cols, mask):
+    """popcount as the plain 0/1 product: bit j of word w to k = 32 w + j,
+    then one int32 product of the expanded a & mask and b."""
+    rows = a if mask is None else a & mask
+    shifts = torch.arange(32, dtype=torch.int64)
+
+    def expand(words):
+        bits = (words.long()[:, :, None] >> shifts) & 1
+        return bits.reshape(words.shape[0], -1).int()
+    return expand(rows) @ expand(cols).T
+
+
+def _mma_steps(a, cols, mask):
+    """The mma kernel's arithmetic: W zero-padded to whole k256 steps of 8
+    words (one 1-bit wgmma each), the popcount of each step's AND, the
+    steps summed in int32."""
+    rows = a if mask is None else a & mask
+    pad = -rows.shape[1] % 8
+    rows = torch.nn.functional.pad(rows, (0, pad))
+    cols = torch.nn.functional.pad(cols, (0, pad))
+    steps = (rows.view(rows.shape[0], 1, -1, 8)
+             & cols.view(1, cols.shape[0], -1, 8))
+    return bitset.popcount(steps, axis=-1).sum(-1, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("w", [1, 7, 33])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("form", ["zero_one", "kernel"])
+def test_mma_arithmetic_matches_reference(w, with_mask, form):
+    """The mma kernel's arithmetic in plain torch (``form="kernel"``: W
+    zero-padded to k256 steps of 8 words, each step's AND popcount, an
+    int32 sum; ``"zero_one"``: the 0/1 product over the 32 W bits that
+    the tensor cores' 1-bit form computes) against the Pallas kernel in
+    interpret mode, exactly: random words, words with bit 31 set, all-ones
+    words (count 32 W)."""
+    rng = np.random.default_rng(100 * w + with_mask)
+    a, cols = _words(rng, 6, w), _words(rng, 9, w)
+    a[0] |= np.uint32(1 << 31)
+    cols[0] |= np.uint32(1 << 31)
+    a[1] = cols[1] = np.uint32(0xFFFFFFFF)
+    mask = _words(rng, 6, w) if with_mask else None
+    if mask is not None:
+        mask[1] = np.uint32(0xFFFFFFFF)
+    run = _mma_steps if form == "kernel" else _zero_one_product
+    got = run(_t(a), _t(cols), None if mask is None else _t(mask))
+    assert got.dtype == torch.int32
+    want = _pallas(a, cols, mask)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[1, 1] == 32 * w
