@@ -34,9 +34,12 @@ each (plus detail):
    also at the main path's shape, with its time, the plain version's time
    and the least time the card could take (bound); ``segment_matmul``'s
    CSR build (``csr_by_node``) bit for bit against ``edges_by_node`` on
-   random, sorted, one-node and all-dropped ``dst``, and one
+   random, sorted, one-node and all-dropped ``dst``, one
    ``segment_matmul`` call shown to be one C call with no sort, search or
-   host read; ``masked_intersect``'s three kernels (the tensor-core mma
+   host read, and each call (16-byte and one-element rows, fp32 and
+   bf16, sorted and random ``dst``) shown by ``torch.profiler`` to put at
+   most two operations and no memset on the card; ``masked_intersect``'s
+   three kernels (the tensor-core mma
    kernel, the 64 x 64 tile and the row-streaming kernel, each forced)
    and the call its plan picks, all exact, at every ragged shape; at the
    main shape the planned call (the mma kernel) and the tile on random
@@ -87,9 +90,12 @@ each (plus detail):
    last batch's inputs, beside its plain version, one PyTorch library
    call for the same function, and its bound (for fp32 attention, whose
    kernel splits each fp32 product into three tf32 tensor-core products,
-   the bound of those three, with the fp32 FMA bound beside it), and a
-   ``torch.profiler`` split of one ``segment_matmul`` call in each dtype:
-   each kernel's device time against the call's wall time;
+   the bound of those three, with the fp32 FMA bound beside it);
+   ``segment_matmul`` also with the batch's edges shuffled (messages and
+   ``dst`` alike, seeded), which runs the radix passes; and a
+   ``torch.profiler`` split of one ``segment_matmul`` call in each dtype,
+   sorted and shuffled: each kernel's device time against the call's
+   wall time;
 7. the engine's ``merge_topk`` at k = 4,400, S = 2,050, B = 64 on rows
    equal except in their last 3 words, with duplicates: equal to chained
    stable sorts on the card, with its time and its peak device memory
@@ -2033,6 +2039,57 @@ def check_csr(rng) -> None:
         fail(f"one segment_matmul call made the C calls {calls}")
     print(f"[2 kernel] segment_matmul: one call = {len(calls)} C call, no "
           f"torch.{'/'.join(banned)}, no host read")
+    check_segment_ops(rng)
+
+
+# the most device operations one segment_matmul call may put on the card
+SEGMENT_MAX_OPS = 2
+
+
+def check_segment_ops(rng) -> None:
+    """``torch.profiler`` over single ``segment_matmul`` calls (one-element
+    and 16-byte rows, fp32 and bf16, sorted and random ``dst``), each
+    followed by a synchronize: each puts at most ``SEGMENT_MAX_OPS`` device
+    operations (kernels, copies, sets) on the card and no memset."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import segment_matmul as sm
+
+    calls = []
+    for (e, n, d) in ((999, 77, 13), (5000, 3000, 256)):
+        for dtype in torch_dtypes().values():
+            dst = rng.integers(-1, n + 1, e, dtype=np.int32)
+            for order in ("random", "sorted"):
+                if order == "sorted":
+                    dst = np.sort(dst.clip(0, n - 1))
+                msg = torch.from_numpy(rng.standard_normal(
+                    (e, d), np.float32)).cuda().to(dtype)
+                calls.append((f"E={e} N={n} D={d} {dtype} {order}", msg,
+                              torch.from_numpy(dst).cuda(), n))
+    for _, msg, dst, n in calls:
+        sm.segment_matmul(msg, dst, n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _, msg, dst, n in calls:
+            sm.segment_matmul(msg, dst, n)
+            torch.cuda.synchronize()
+    ops = [(device_activity(e), e.name()) for e in
+           prof.profiler.kineto_results.events()
+           if device_activity(e) is not None]
+    sets = [name for cat, name in ops if cat == "gpu_memset"]
+    names = sorted({name.split("<")[0].split("::")[-1] for _, name in ops})
+    if not ops:
+        fail("segment_matmul: the profiler showed no device operation")
+    if sets or len(ops) > SEGMENT_MAX_OPS * len(calls):
+        fail(f"segment_matmul: {len(calls)} calls put {len(ops)} device "
+             f"operations ({len(sets)} memsets) on the card: {names}")
+    print(f"[2 kernel] segment_matmul: {len(calls)} calls (one-element and "
+          f"16-byte rows, fp32 and bf16, random and sorted dst) put "
+          f"{len(ops)} device operations on the card, no memset "
+          f"({len(ops) / len(calls):g} a call, at most {SEGMENT_MAX_OPS}): "
+          f"{names}")
 
 
 def phase_coworkload_kernels() -> dict:
@@ -2091,11 +2148,9 @@ def phase_coworkload_kernels() -> dict:
 
 
 SPLIT_CALLS = 10
-# what one segment_matmul call puts on the card: the clearing of its
-# scratch, the CSR build's kernels, the sum
-SPLIT_KERNELS = ("Memset", "csr_count_kernel", "csr_scan_kernel",
-                 "csr_digit_scan_kernel", "csr_place_kernel",
-                 "segment_matmul_kernel")
+# what one segment_matmul call puts on the card: its one cooperative
+# kernel (the CSR build and the sum); a memset would show here too
+SPLIT_KERNELS = ("Memset", "segment_matmul_kernel")
 
 
 def segment_split(dt: str, call) -> None:
@@ -2315,12 +2370,40 @@ def phase_coworkload(graph, ragged: dict) -> dict:
                 0, dst, msg.float()),
             bound_ms(msg.numel() * msg.element_size() + 4 * n * d_feat
                      + 4 * dst.numel(), msg.numel(), "fp32"))
+    # the same batch with its edges shuffled: dst unsorted, so the launch
+    # runs the radix passes; messages moved with their edges
+    perm = torch.randperm(dst.numel(), generator=gen, device="cuda")
+    dst_s = dst[perm]
+    for dt, msg in msgs.items():
+        msg_s = msg[perm]
+        rec = records["segment_matmul"][dt]
+        errs = errors("segment_matmul", dt,
+                      ops.segment_matmul(msg_s, dst_s, n),
+                      ref.segment_matmul_ref(msg_s, dst_s, n),
+                      "shuffled co-workload batch")
+        same_bits("segment_matmul", dt, ops.segment_matmul(msg_s, dst_s, n),
+                  ops.segment_matmul(msg_s, dst_s, n),
+                  "shuffled co-workload batch")
+        rec["shuffled"] = dict(
+            ms=cuda_ms(lambda: ops.segment_matmul(msg_s, dst_s, n), 20),
+            library_ms=cuda_ms(lambda: torch.zeros(
+                n, d_feat, device="cuda").index_add_(0, dst_s, msg_s.float()),
+                20), **errs)
+        print(f"[6 coworkload] segment_matmul {dt} E={msg.shape[0]} N={n} "
+              f"D={d_feat}, dst shuffled: ms={rec['shuffled']['ms']:.4f} "
+              f"library_ms={rec['shuffled']['library_ms']:.4f} "
+              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}); "
+              f"{err_text(rec['shuffled'])}")
     for dt, msg in msgs.items():
         same_bits("segment_matmul", dt, ops.segment_matmul(msg, dst, n),
                   ops.segment_matmul(msg, dst, n), "co-workload batch")
         segment_split(dt, lambda: ops.segment_matmul(msg, dst, n))
-    print(f"[6 coworkload] segment_matmul CSR alone: the kernels' "
+        msg_s = msg[perm]
+        segment_split(f"{dt} shuffled",
+                      lambda: ops.segment_matmul(msg_s, dst_s, n))
+    print(f"[6 coworkload] segment_matmul CSR alone: the kernel's "
           f"(csr_by_node) {cuda_ms(lambda: csr_by_node(dst, n), 20):.4f} ms, "
+          f"dst shuffled {cuda_ms(lambda: csr_by_node(dst_s, n), 20):.4f}; "
           f"the plain CSR build (edges_by_node: torch.sort, searchsorted) "
           f"{cuda_ms(lambda: edges_by_node(dst, n), 20):.4f} ms")
     flat = table.view(f * rows, d_emb)

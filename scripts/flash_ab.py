@@ -23,7 +23,10 @@ timed on the same seeded inputs:
   ``NeighborSampler(planted_clique_graph(32768, 354000, 32, seed=0),
   batch_nodes=512, fanout=(25, 10), d_feat=256)``'s first sample (E =
   140,800, N = 141,313, D = 256), in fp32 and bf16 (or the one
-  ``--dtype`` names);
+  ``--dtype`` names), with ``dst`` as the sampler gives it (sorted) and
+  with the edges shuffled (``torch.randperm`` from seed 0, messages and
+  ``dst`` alike); after each turn the wrapper's output is kept, and the
+  four must agree bit for bit;
 - ``masked_intersect`` on seeded random words at ``chip_smoke.py``'s
   timed shapes: the clique path's (B=64 N=32768 W=1024) without and with
   a row mask, and the pattern probe's (1,024 rows, one all-ones column,
@@ -93,8 +96,11 @@ def segment_inputs():
     return (*chip_smoke.sage_batch(sampler, 0), sampler.n_pad)
 
 
-def take_turns(kernel: str, dt: str, run_other, run_this, want) -> dict:
-    """Check both outputs, then time other, this, this, other."""
+def take_turns(kernel: str, dt: str, run_other, run_this, want,
+               bitwise: bool = False) -> dict:
+    """Check both outputs, then time other, this, this, other; with
+    ``bitwise`` the output after each turn must equal the first's bit for
+    bit."""
     import torch
     for what, run in (("other", run_other), ("this", run_this)):
         if kernel == "masked_intersect":
@@ -103,17 +109,25 @@ def take_turns(kernel: str, dt: str, run_other, run_this, want) -> dict:
                                 f"plain version")
             print(f"{kernel} {dt} {what}: exact")
             continue
-        errs = chip_smoke.errors(kernel, dt, run(), want, what)
+        errs = chip_smoke.errors(kernel, dt.split()[0], run(), want, what)
         rel = (f", of a head relative {errs['max_rel_err']:.3g}"
                if "max_rel_err" in errs else "")
         print(f"{kernel} {dt} {what}: max abs err "
               f"{errs['max_abs_err']:.3g}{rel}")
-    turns = []
+    turns, first = [], None
     for what in ("other", "this", "this", "other"):
         run = run_other if what == "other" else run_this
         ms = chip_smoke.queued_ms(run, REPS) \
             if kernel == "masked_intersect" else chip_smoke.cuda_ms(run, REPS)
         turns.append((what, ms))
+        if bitwise:
+            out = run().view(torch.int32)
+            if first is None:
+                first = out
+            elif not torch.equal(out, first):
+                chip_smoke.fail(f"{kernel} {dt}: the {what} turn's output "
+                                f"differs from the first turn's (other) "
+                                f"bit for bit")
         rate = (f", {FLOPS / ms / 1e9:.1f} TFLOP/s"
                 if kernel == "flash_attention" else "")
         print(f"{kernel} {dt} {what}: {ms:.4f} ms{rate}")
@@ -182,14 +196,22 @@ def main() -> int:
     else:
         from repro_torch.kernels import segment_matmul as sm
         feats, src, dst, n = segment_inputs()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        perm = torch.randperm(dst.numel(), generator=gen, device="cuda")
         results = []
         for dt in ([args.dtype] if args.dtype else ["fp32", "bf16"]):
-            msg = feats.to(dtypes[dt])[src]
-            results.append(take_turns(
-                "segment_matmul", dt,
-                lambda: other.segment_matmul(msg, dst, n),
-                lambda: sm.segment_matmul(msg, dst, n),
-                sm.segment_matmul_plain(msg, dst, n)))
+            for edges in ("sorted", "shuffled"):
+                msg = feats.to(dtypes[dt])[src]
+                d = dst
+                if edges == "shuffled":
+                    msg, d = msg[perm], dst[perm]
+                results.append(take_turns(
+                    "segment_matmul", f"{dt} {edges}",
+                    lambda: other.segment_matmul(msg, d, n),
+                    lambda: sm.segment_matmul(msg, d, n),
+                    sm.segment_matmul_plain(msg, d, n), bitwise=True))
+                results[-1]["bit_identical"] = True
         shape = {"E": int(dst.numel()), "N": n, "D": chip_smoke.SAGE["d_feat"]}
     print(json.dumps({"kernel": args.kernel, "shape": shape,
                       "results": results}))

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[str, Callable[..., int]] = {}   # name -> its declared C entry
 
 
 def sources() -> Dict[str, Path]:
@@ -121,15 +122,17 @@ def launch(name: str, argtypes: Sequence, *args) -> None:
     synchronize would not report it).  ``argtypes`` are declared before the
     first call: without them ctypes passes every int as a C int and cuts
     the 64-bit pointers."""
-    lib = load(name)
-    entry = getattr(lib, f"{name}_launch")
-    if entry.argtypes is None:
+    entry = _ENTRIES.get(name)
+    if entry is None:
+        lib = load(name)
+        entry = getattr(lib, f"{name}_launch")
         entry.argtypes = list(argtypes)
         entry.restype = ctypes.c_int
         describe = getattr(lib, f"{name}_error_string")
         describe.argtypes = [ctypes.c_int]
         describe.restype = ctypes.c_char_p
+        _ENTRIES[name] = entry
     err = entry(*args)
     if err:
-        text = getattr(lib, f"{name}_error_string")(err).decode()
+        text = getattr(load(name), f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({text})")

@@ -160,6 +160,113 @@ def test_csr_by_node_on_cpu_runs_the_radix_scheme():
         segment_matmul.csr_by_node(dst.long(), 600)
 
 
+@pytest.mark.parametrize("case", ["random", "sorted"])
+@pytest.mark.parametrize("n", [200, 60_000, 1_000_000, 2 ** 24])
+@pytest.mark.parametrize("e", [segment_matmul.RADIX_TILE - 1,
+                               segment_matmul.RADIX_TILE,
+                               segment_matmul.RADIX_TILE + 1])
+def test_csr_radix_scheme_around_the_tile(case, e, n):
+    """The scheme at one edge below, at and above a radix tile, with N
+    needing one to four 8-bit passes (200; 60,000; 1,000,000; 2^24)."""
+    dst = torch.from_numpy(_dst_case(case, e, n))
+    assert segment_matmul._csr_layout(e, n).passes == \
+        [200, 60_000, 1_000_000, 2 ** 24].index(n) + 1
+    got = segment_matmul.csr_radix_plain(dst, n)
+    want = segment_matmul.edges_by_node(dst, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("e,n", [(0, 1), (1, 1), (2048, 7), (140_800,
+                                                             141_313),
+                                 (4099, 2 ** 24)])
+def test_csr_layout_keeps_flag_and_counters_apart_from_ptr_and_order(e, n):
+    """ptr, the per-tile sortedness flags, the words the launch clears
+    before it counts into them (key counts, scan tiles' sums, digit
+    totals), the per-tile digit counts, order and the radix buffers lie one
+    after the other, none overlapping: the flags and the cleared words are
+    disjoint from ptr and order.  No word of the grid barrier is in the
+    buffer (the cooperative launch keeps its own)."""
+    lay = segment_matmul._csr_layout(e, n)
+    regions = [("ptr", 0, n + 1), ("flags", lay.flags, lay.tiles),
+               ("counts", lay.counts, n + 1),
+               ("tile_sums", lay.tile_sums, lay.scan_tiles),
+               ("totals", lay.totals, lay.passes * 256),
+               ("hist", lay.hist, lay.passes * 256 * lay.tiles),
+               ("order", lay.order, e), ("keys_a", lay.keys_a, e),
+               ("vals_a", lay.vals_a, e), ("keys_b", lay.keys_b, e),
+               ("vals_b", lay.vals_b, e)]
+    at = 0
+    for name, start, size in regions:     # in order, back to back
+        assert start == at, name
+        at = start + size
+    assert at == lay.total
+    assert (lay.counts, lay.zeroed) == (regions[2][1], regions[5][1])
+    assert lay.flags >= n + 1 and lay.counts >= lay.flags + lay.tiles
+    assert lay.order >= lay.zeroed
+    assert lay.scan_tiles * segment_matmul.SCAN_TILE >= n + 1
+    assert lay.tiles * segment_matmul.RADIX_TILE >= e
+
+
+@pytest.mark.parametrize("case,e,n", [("random", 999, 77),
+                                      ("sorted", 5000, 3000),
+                                      ("one_node", 3000, 40),
+                                      ("dropped", 300, 20),
+                                      ("sorted", 140_800, 141_313)])
+@pytest.mark.parametrize("warps", [1, 37, 2112])
+def test_warp_split_covers_every_node_once_and_evenly(case, e, n, warps):
+    """The sum's split: the rows pass's ranges run from node 0 without gap
+    or overlap, past every node with edges, each warp's rows at most its
+    share plus one node's (the node its share ends in); the zeros pass's
+    ranges tile [0, N) in equal parts."""
+    dst = torch.from_numpy(_dst_case(case, e, n))
+    _, ptr = segment_matmul.csr_radix_plain(dst, n)
+    rows, zeros = segment_matmul.warp_split_plain(ptr, warps)
+    assert rows.shape == zeros.shape == (warps, 2)
+    assert int(rows[0, 0]) == 0 and int(zeros[0, 0]) == 0
+    assert torch.equal(rows[1:, 0], rows[:-1, 1])
+    assert torch.equal(zeros[1:, 0], zeros[:-1, 1])
+    assert int(zeros[-1, 1]) == n
+    ptr = ptr.long()
+    edges = ptr[1:] - ptr[:-1]
+    last = int(rows[-1, 1])
+    assert not bool((edges[last:] > 0).any())
+    share = -(-int(ptr[n]) // warps)
+    widest = int(edges.max()) if n else 0
+    for lo, hi in rows.tolist():
+        assert hi >= lo and int(ptr[hi] - ptr[lo]) <= share + widest
+    assert int((zeros[:, 1] - zeros[:, 0]).max()) <= -(-n // warps)
+
+
+@pytest.mark.parametrize("case", ["random", "sorted", "dropped"])
+@pytest.mark.parametrize("d", [8, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sum_warp_by_warp_is_the_plain_version_bit_for_bit(case, d, dtype):
+    """The kernel's arithmetic: the rows pass (the split above), each
+    node's rows in CSR order added into fp32 from zero one by one, then the
+    zeros pass over the empty nodes; equal bit for bit to the plain version
+    (and so, on the card, any launch equals the last)."""
+    e, n = 700, 90
+    _, msg = _normal(e, e, d, dtype=dtype)
+    dst = torch.from_numpy(_dst_case(case, e, n))
+    order, ptr = segment_matmul.csr_radix_plain(dst, n)
+    rows = msg.float()
+    out = torch.empty((n, d))
+    by_rows, by_nodes = segment_matmul.warp_split_plain(ptr, 16)
+    for lo, hi in by_rows.tolist():
+        for v in range(lo, hi):
+            if ptr[v] < ptr[v + 1]:
+                acc = torch.zeros(d)
+                for i in range(int(ptr[v]), int(ptr[v + 1])):
+                    acc = acc + rows[int(order[i])]
+                out[v] = acc
+    for lo, hi in by_nodes.tolist():
+        for v in range(lo, hi):
+            if ptr[v] == ptr[v + 1]:
+                out[v] = 0.0
+    want = segment_matmul.segment_matmul_plain(msg, dst, n)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
 # ----------------------------------------------------------- embedding_bag
 @pytest.mark.parametrize("f,v,d,b", [(5, 37, 8, 9), (40, 1000, 32, 16),
                                      (1, 8, 128, 3)])
