@@ -4,10 +4,10 @@ NVIDIA card, in one process: ``flash_attention`` (the default, in one
 dtype), ``segment_matmul`` (in each dtype) or ``masked_intersect`` (at
 each of its timed shapes).
 
-    git archive <revision> | tar -x -C artifacts/other
-    python3 scripts/flash_ab.py --other artifacts/other [--dtype fp32]
-    python3 scripts/flash_ab.py --other artifacts/other --kernel segment_matmul
-    python3 scripts/flash_ab.py --other artifacts/other --kernel masked_intersect
+    git archive <revision> | tar -x -C build/other
+    python3 scripts/flash_ab.py --other build/other [--dtype fp32]
+    python3 scripts/flash_ab.py --other build/other --kernel segment_matmul
+    python3 scripts/flash_ab.py --other build/other --kernel masked_intersect
 
 ``--other`` is the root of a checkout of another revision of this repo (any
 from the one that added ``src/repro_torch/kernels/flash_attention.py`` on).
