@@ -438,9 +438,12 @@ PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12,
               "int8": 1979e12}
 
 # the co-workload kernels: ragged sweeps (tests/test_kernels.py's among
-# them) before the full-width shape
+# them) before the full-width shape; segment_matmul's also rows wider than
+# one 256-column slab (D = 264, 512) and more scan tiles than the kernel
+# keeps in shared memory (N + 1 > 1,024 x 4,096)
 SEGMENT_RAGGED = ((64, 16, 8), (300, 50, 16), (1024, 128, 64), (1, 1, 1),
-                  (999, 77, 13), (5000, 3000, 256))             # (E, N, D)
+                  (999, 77, 13), (5000, 3000, 256), (1500, 400, 264),
+                  (2000, 500, 512), (200_000, 4_500_000, 4))    # (E, N, D)
 EMBEDDING_RAGGED = ((5, 37, 8, 9), (40, 1000, 32, 16), (1, 8, 128, 3),
                     (3, 11, 7, 5), (26, 1000, 128, 333))        # (F, V, D, B)
 FLASH_RAGGED = ((2, 128, 32), (4, 256, 64), (1, 512, 16), (1, 1, 8),
@@ -2047,10 +2050,11 @@ SEGMENT_MAX_OPS = 2
 
 
 def check_segment_ops(rng) -> None:
-    """``torch.profiler`` over single ``segment_matmul`` calls (one-element
-    and 16-byte rows, fp32 and bf16, sorted and random ``dst``), each
-    followed by a synchronize: each puts at most ``SEGMENT_MAX_OPS`` device
-    operations (kernels, copies, sets) on the card and no memset."""
+    """``torch.profiler`` over each single ``segment_matmul`` call
+    (one-element and 16-byte rows, fp32 and bf16, sorted and random
+    ``dst``), one profile a call, followed by a synchronize: each puts at
+    least one and at most ``SEGMENT_MAX_OPS`` device operations (kernels,
+    copies, sets) on the card and no memset."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2070,26 +2074,30 @@ def check_segment_ops(rng) -> None:
     for _, msg, dst, n in calls:
         sm.segment_matmul(msg, dst, n)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _, msg, dst, n in calls:
+    counts, names = [], set()
+    for what, msg, dst, n in calls:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             sm.segment_matmul(msg, dst, n)
             torch.cuda.synchronize()
-    ops = [(device_activity(e), e.name()) for e in
-           prof.profiler.kineto_results.events()
-           if device_activity(e) is not None]
-    sets = [name for cat, name in ops if cat == "gpu_memset"]
-    names = sorted({name.split("<")[0].split("::")[-1] for _, name in ops})
-    if not ops:
-        fail("segment_matmul: the profiler showed no device operation")
-    if sets or len(ops) > SEGMENT_MAX_OPS * len(calls):
-        fail(f"segment_matmul: {len(calls)} calls put {len(ops)} device "
-             f"operations ({len(sets)} memsets) on the card: {names}")
+        ops = [(device_activity(e), e.name()) for e in
+               prof.profiler.kineto_results.events()
+               if device_activity(e) is not None]
+        sets = [name for cat, name in ops if cat == "gpu_memset"]
+        called = sorted({name.split("<")[0].split("::")[-1]
+                         for _, name in ops})
+        if not ops:
+            fail(f"segment_matmul {what}: the profiler showed no device "
+                 f"operation")
+        if sets or len(ops) > SEGMENT_MAX_OPS:
+            fail(f"segment_matmul {what}: one call put {len(ops)} device "
+                 f"operations ({len(sets)} memsets) on the card: {called}")
+        counts.append(len(ops))
+        names.update(called)
     print(f"[2 kernel] segment_matmul: {len(calls)} calls (one-element and "
-          f"16-byte rows, fp32 and bf16, random and sorted dst) put "
-          f"{len(ops)} device operations on the card, no memset "
-          f"({len(ops) / len(calls):g} a call, at most {SEGMENT_MAX_OPS}): "
-          f"{names}")
+          f"16-byte rows, fp32 and bf16, random and sorted dst), each "
+          f"profiled alone, put {counts} device operations on the card, no "
+          f"memset (at most {SEGMENT_MAX_OPS} a call): {sorted(names)}")
 
 
 def phase_coworkload_kernels() -> dict:
@@ -2109,18 +2117,21 @@ def phase_coworkload_kernels() -> dict:
 
     check_csr(rng)
     for dt, dtype in torch_dtypes().items():
-        # segment_matmul: random destinations, some outside [0, N) (dropped)
+        # segment_matmul: random destinations, some outside [0, N)
+        # (dropped), and the same sorted into range (the sorted-key path)
         rec = records["segment_matmul"][dt] = {}
         for (e, n, d) in SEGMENT_RAGGED:
             msg = normal(e, d).to(dtype)
-            dst = torch.from_numpy(rng.integers(-1, n + 1, e, dtype=np.int32)
-                                   ).cuda()
-            got = ops.segment_matmul(msg, dst, n)
-            fold(rec, errors("segment_matmul", dt, got,
-                             ref.segment_matmul_ref(msg, dst, n),
-                             f"E={e} N={n} D={d}"))
-            same_bits("segment_matmul", dt, got,
-                      ops.segment_matmul(msg, dst, n), f"E={e} N={n} D={d}")
+            random = rng.integers(-1, n + 1, e, dtype=np.int32)
+            for order, dst in (("random", random),
+                               ("sorted", np.sort(random.clip(0, n - 1)))):
+                what = f"E={e} N={n} D={d} {order}"
+                dst = torch.from_numpy(dst).cuda()
+                got = ops.segment_matmul(msg, dst, n)
+                fold(rec, errors("segment_matmul", dt, got,
+                                 ref.segment_matmul_ref(msg, dst, n), what))
+                same_bits("segment_matmul", dt, got,
+                          ops.segment_matmul(msg, dst, n), what)
         # embedding_bag: ids in range, as the contract has them
         rec = records["embedding_bag"][dt] = {}
         for (f, v, d, b) in EMBEDDING_RAGGED:

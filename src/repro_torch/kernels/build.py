@@ -4,7 +4,8 @@ runs; here a kernel always runs compiled, on the card.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, which the
-kernel's wrapper loads with ``ctypes`` (:func:`launch`).  The library's
+kernel's wrapper loads with ``ctypes`` and calls on PyTorch's current
+stream (:func:`launch_on`).  The library's
 file name carries a hash of the source, the shared headers and the flags,
 so an edited source is rebuilt and an unchanged one is loaded from the
 build directory (``build/repro_torch`` at the repository root, listed in
@@ -21,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -136,3 +139,20 @@ def launch(name: str, argtypes: Sequence, *args) -> None:
     if err:
         text = getattr(load(name), f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({text})")
+
+
+def launch_on(device: torch.device, name: str, argtypes: Sequence,
+              *args) -> None:
+    """:func:`launch` on ``device``, with the raw handle of PyTorch's
+    current stream there as the entry's last argument, and ``device`` made
+    the current device around the call where it is not already.  A short
+    call's time on the card includes the host's enqueue, so the handle
+    comes from PyTorch's raw accessor (what
+    ``torch.cuda.current_stream(device).cuda_stream`` returns, without
+    building a ``Stream`` object)."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        launch(name, argtypes, *args, stream)
+    else:
+        with torch.cuda.device(device):
+            launch(name, argtypes, *args, stream)

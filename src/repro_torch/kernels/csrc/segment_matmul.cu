@@ -50,11 +50,9 @@
 //     at 62% of its bytes bound.  Now it runs in two passes, so that every
 //     warp first reads an equal share of the rows and then writes an equal
 //     share of the empty rows (split by nodes alone, the warps with rows to
-//     read finish long after those with only zeros to write), and because the
-//     card runs the reads and then the writes faster than the two interleaved
-//     (scripts/sm_ceilings.py). The rows pass: each warp sums the nodes of an
-//     equal share of the kept rows (a 32-way search of ptr finds the share's
-//     first node). It streams those message rows, in CSR order, through its
+//     read finish long after those with only zeros to write).  The rows
+//     pass: each warp sums the nodes of an equal share of the kept rows (a
+//     32-way search of ptr finds the share's first node). It streams those message rows, in CSR order, through its
 //     slots of the block's ring in shared memory with bulk asynchronous copies
 //     (cp.async.bulk, completing on one mbarrier a slot): one copy a slot when
 //     the keys are sorted and a row fits the slot (its rows are contiguous),

@@ -91,10 +91,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     f, v, d = table.shape
     b = ids.shape[0]
     out = torch.empty((b, f * d), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        build.launch("embedding_bag", _ARGTYPES, table.data_ptr(),
-                     ids.data_ptr(), out.data_ptr(), b, f, v, d,
-                     DTYPES[table.dtype],
-                     torch.cuda.current_stream(device).cuda_stream)
+    build.launch_on(device, "embedding_bag", _ARGTYPES, table.data_ptr(),
+                    ids.data_ptr(), out.data_ptr(), b, f, v, d,
+                    DTYPES[table.dtype])
     launches += 1
     return out

@@ -210,11 +210,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         work = torch.empty(_fp32_work_elems(h, s, width),
                            dtype=torch.float32, device=device)
     out = torch.empty((h, s, d), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        build.launch("flash_attention", _ARGTYPES, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), out.data_ptr(),
-                     None if work is None else work.data_ptr(), h, s, d, width,
-                     int(causal), DTYPES[q.dtype],
-                     torch.cuda.current_stream(device).cuda_stream)
+    build.launch_on(device, "flash_attention", _ARGTYPES, q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    None if work is None else work.data_ptr(), h, s, d, width,
+                    int(causal), DTYPES[q.dtype])
     launches += 1
     return out

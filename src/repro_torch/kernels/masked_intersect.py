@@ -215,13 +215,11 @@ def masked_intersect(a_bits: torch.Tensor, b_bits: torch.Tensor,
     if plan is None:
         plan = _plan(n_cols, w, _aligned(*operands))
     out = torch.empty((n_rows, n_cols), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        build.launch(
-            "masked_intersect", _ARGTYPES, a_bits.data_ptr(),
-            None if mask_bits is None else mask_bits.data_ptr(),
-            b_bits.data_ptr(), out.data_ptr(), n_rows, n_cols, w,
-            _VARIANTS[plan.variant], plan.lanes, int(plan.vector), plan.cols,
-            torch.cuda.current_stream(device).cuda_stream)
+    build.launch_on(
+        device, "masked_intersect", _ARGTYPES, a_bits.data_ptr(),
+        None if mask_bits is None else mask_bits.data_ptr(),
+        b_bits.data_ptr(), out.data_ptr(), n_rows, n_cols, w,
+        _VARIANTS[plan.variant], plan.lanes, int(plan.vector), plan.cols)
     launches += 1
     launches_by_variant[plan.variant] += 1
     return out

@@ -16,9 +16,8 @@ cooperative launch of one persistent kernel on PyTorch's current stream:
 grid-wide barriers separate its phases, which sort the edges by ``dst``
 (stable) into a CSR — straight from the keys when the card finds them
 sorted, else a count, a scan and a radix sort over the key bits — and then
-sum.  The sum runs in two passes (:func:`warp_split_plain` is the same
-split in plain PyTorch): each warp first sums the nodes of an equal share
-of the rows, streaming the message rows through a ring in shared memory
+sum.  The sum runs in two passes: each warp first sums the nodes of an
+equal share of the rows, streaming the message rows through a ring in shared memory
 with bulk asynchronous copies and adding each node's rows in fp32 in edge
 order — no atomics, so the result does not depend on the launch — and
 then zeroes the empty nodes of an equal share of the nodes with 16-byte
@@ -165,23 +164,6 @@ def _csr_layout(e: int, num_nodes: int) -> CsrLayout:
                      total=order + 5 * e)
 
 
-def warp_split_plain(ptr: torch.Tensor, warps: int):
-    """The sum's split of the work among the launch's ``warps`` warps, as
-    the kernel makes it, in two passes: ``(rows, zeros)``, each int64
-    ``[warps, 2]``.  In the rows pass warp g sums the nodes with edges among
-    ``[rows[g, 0], rows[g, 1])``: from the smallest n with ``ptr[n] >= R *
-    g // warps`` to that of g + 1, R = ``ptr[N]`` the kept edges, so each
-    warp reads about R / warps rows.  In the zeros pass it zeroes the empty
-    nodes among ``[zeros[g, 0], zeros[g, 1])`` = ``[N * g // warps, N * (g
-    + 1) // warps)``."""
-    n = ptr.shape[0] - 1
-    g = torch.arange(warps + 1, device=ptr.device)
-    bounds = torch.searchsorted(ptr.long(), int(ptr[n]) * g // warps)
-    rows = torch.stack([bounds[:-1], bounds[1:]], dim=1)
-    zero = n * g // warps
-    return rows, torch.stack([zero[:-1], zero[1:]], dim=1)
-
-
 def csr_radix_plain(dst: torch.Tensor, num_nodes: int):
     """The CSR build of ``csrc/segment_matmul.cu`` step for step in plain
     PyTorch, on any device: keys (``dst`` in range, else ``num_nodes``);
@@ -252,18 +234,6 @@ def csr_by_node(dst: torch.Tensor, num_nodes: int):
         scratch[:num_nodes + 1]
 
 
-def _current_stream(device: torch.device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``.  The call
-    is shorter than the kernel's time on the card, so the host's enqueue
-    shows in its time: PyTorch's own raw accessor (what
-    ``torch.cuda.current_stream(device).cuda_stream`` returns, without
-    building a ``Stream`` object) where the build has it."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        return torch.cuda.current_stream(device).cuda_stream
-    return raw(device.index)
-
-
 def _launch(messages, dst, out, num_nodes, d, dtype):
     """The library's one C call on ``dst``'s card — one cooperative launch:
     the CSR build into a scratch buffer allocated here (no clearing: the
@@ -278,15 +248,11 @@ def _launch(messages, dst, out, num_nodes, d, dtype):
     e = dst.shape[0]
     layout = _csr_layout(e, num_nodes)
     scratch = torch.empty(layout.total, dtype=torch.int32, device=device)
-    args = (None if messages is None else messages.data_ptr(),
-            dst.data_ptr(), scratch.data_ptr(), layout.total,
-            None if out is None else out.data_ptr(), e, num_nodes, d, dtype,
-            _current_stream(device))
-    if device.index == torch.cuda.current_device():
-        build.launch("segment_matmul", _ARGTYPES, *args)
-    else:
-        with torch.cuda.device(device):
-            build.launch("segment_matmul", _ARGTYPES, *args)
+    build.launch_on(device, "segment_matmul", _ARGTYPES,
+                    None if messages is None else messages.data_ptr(),
+                    dst.data_ptr(), scratch.data_ptr(), layout.total,
+                    None if out is None else out.data_ptr(), e, num_nodes, d,
+                    dtype)
     return scratch, layout.order
 
 

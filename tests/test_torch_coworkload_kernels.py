@@ -207,6 +207,23 @@ def test_csr_layout_keeps_flag_and_counters_apart_from_ptr_and_order(e, n):
     assert lay.tiles * segment_matmul.RADIX_TILE >= e
 
 
+def _warp_split(ptr: torch.Tensor, warps: int):
+    """The sum's split of the work among the launch's ``warps`` warps, as
+    ``csrc/segment_matmul.cu``'s ``warp_split`` makes it, in two passes:
+    ``(rows, zeros)``, each int64 ``[warps, 2]``.  In the rows pass warp g
+    sums the nodes with edges among ``[rows[g, 0], rows[g, 1])``: from the
+    smallest n with ``ptr[n] >= R * g // warps`` to that of g + 1, R =
+    ``ptr[N]`` the kept edges, so each warp reads about R / warps rows.  In
+    the zeros pass it zeroes the empty nodes among ``[zeros[g, 0],
+    zeros[g, 1])`` = ``[N * g // warps, N * (g + 1) // warps)``."""
+    n = ptr.shape[0] - 1
+    g = torch.arange(warps + 1)
+    bounds = torch.searchsorted(ptr.long(), int(ptr[n]) * g // warps)
+    rows = torch.stack([bounds[:-1], bounds[1:]], dim=1)
+    zero = n * g // warps
+    return rows, torch.stack([zero[:-1], zero[1:]], dim=1)
+
+
 @pytest.mark.parametrize("case,e,n", [("random", 999, 77),
                                       ("sorted", 5000, 3000),
                                       ("one_node", 3000, 40),
@@ -220,7 +237,7 @@ def test_warp_split_covers_every_node_once_and_evenly(case, e, n, warps):
     ranges tile [0, N) in equal parts."""
     dst = torch.from_numpy(_dst_case(case, e, n))
     _, ptr = segment_matmul.csr_radix_plain(dst, n)
-    rows, zeros = segment_matmul.warp_split_plain(ptr, warps)
+    rows, zeros = _warp_split(ptr, warps)
     assert rows.shape == zeros.shape == (warps, 2)
     assert int(rows[0, 0]) == 0 and int(zeros[0, 0]) == 0
     assert torch.equal(rows[1:, 0], rows[:-1, 1])
@@ -251,7 +268,7 @@ def test_sum_warp_by_warp_is_the_plain_version_bit_for_bit(case, d, dtype):
     order, ptr = segment_matmul.csr_radix_plain(dst, n)
     rows = msg.float()
     out = torch.empty((n, d))
-    by_rows, by_nodes = segment_matmul.warp_split_plain(ptr, 16)
+    by_rows, by_nodes = _warp_split(ptr, 16)
     for lo, hi in by_rows.tolist():
         for v in range(lo, hi):
             if ptr[v] < ptr[v + 1]:

@@ -15,10 +15,8 @@ smoke run uses (2e-4 absolute, 1e-4 relative per head), show that one
 tf32 product alone misses them, and check the plan, the key order, the
 split's error and the wrapper's launch arguments.  The kernel itself runs
 only on the card (``chip_smoke.py`` phases 2 and 6)."""
-import contextlib
 import importlib.util
 import math
-import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -212,10 +210,9 @@ def test_wrapper_hands_the_kernel_true_d_width_and_work(monkeypatch, h, s, d):
     monkeypatch.setattr(fa, "launches", fa.launches)     # restored after
     monkeypatch.setattr(fa.build, "launch",
                         lambda name, argtypes, *args: launched.append(args))
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
     sizes = []
     empty = torch.empty
 

@@ -11,9 +11,7 @@ and that the wrapper hands the kernel the true D beside the planned
 width (for fp32 inputs ``_fp32_plan``'s; ``test_torch_flash_fp32.py``
 has the rest of the fp32 side).  The kernel itself runs only on the card
 (``chip_smoke.py`` phase 2)."""
-import contextlib
 import importlib.util
-import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -113,10 +111,9 @@ def test_wrapper_passes_true_d_and_width(monkeypatch, dtype, d):
                         flash_attention.launches)     # restored after
     monkeypatch.setattr(flash_attention.build, "launch",
                         lambda name, argtypes, *args: launched.append(args))
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
     empty = torch.empty
     monkeypatch.setattr(torch, "empty",
                         lambda *a, device=None, **kw: empty(*a, **kw))
