@@ -1,0 +1,12 @@
+"""``passes.refill_ms`` (ms/step): the program's ``pass.refill`` device
+windows (``Engine._refill``'s device side: the uploads, ``_insert_impl``
+and the overflow's download, in the steps that refill), over the engine
+steps of the requests that ran with no profiler; nothing where the program
+records no such window.  A window is device stream time from the pass's
+first operation to its last, the device's waits inside it for the host's
+enqueue included."""
+from nuribench.passes import per_step_ms
+
+
+def read(run):
+    return per_step_ms(run, "pass.refill")

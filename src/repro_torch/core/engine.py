@@ -36,6 +36,14 @@ reference's at the same ``T``; the no-op steps cost device time, which is
 the price of the single read.  Each step's overflow block lands at the
 valid-entry watermark ``w`` of an accumulator allocated once per engine.
 
+With ``observe`` on, each pass of a super-step is timed as a window
+(``pass.dequeue``, ``pass.score``, ``pass.select``, ``pass.materialize``,
+``pass.insert``; ``pass.accumulate`` in macro-steps, ``pass.refill`` when a
+refill runs): on a card the device's own stream time between two events,
+put on the host's clock by an anchor event a step
+(:mod:`repro_torch.obs.windows`), on the CPU a host span.  No operation
+moves and no synchronisation is added.
+
 Durable runs (the reference's DESIGN.md §15): with ``checkpoint_every``
 and ``checkpoint_dir`` set, :meth:`Engine.run` saves the whole state —
 pool, result set, counters, spill queue — through
@@ -60,7 +68,7 @@ import torch
 from .api import NEG, SubgraphComputation, resolve_device
 from .vpq import VirtualPriorityQueue
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.obs import NOOP, Observability
+from repro_torch.obs import NOOP, Observability, pass_windows
 
 #: EngineState counters checkpointed verbatim (the reference's tuple;
 #: ``repro_torch.carry.STATE_SCALARS`` names this one)
@@ -266,6 +274,9 @@ class Engine:
             self.obs = NOOP
         obs = self.obs
         self._span = obs.tracer.span
+        # one window a pass and super-step (pass.*): on the device's clock
+        # on a card, a host span on the CPU, NULL_SPAN when off
+        self._pass, self._windows = pass_windows(obs, self.device)
         self._m_steps = obs.counter(
             "engine_steps_total", "engine super-steps completed")
         self._m_host_syncs = obs.counter(
@@ -313,26 +324,28 @@ class Engine:
         prio, ub, valid)``."""
         comp, B, k = self.comp, self.B, self.k
 
-        # 1. dequeue top-B
-        idx_b = _desc_order(pool_prio)[:B]
-        prio_b = pool_prio[idx_b]
-        valid_b = prio_b > NEG
-        if active is not None:
-            valid_b = valid_b & active
-        states_b = pool_states[idx_b]
-        ub_b = pool_ub[idx_b]
-        # the dequeued slots empty (the others among the B are empty already)
-        pool_prio = pool_prio.index_put((idx_b,),
-                                        torch.where(valid_b, NEG, prio_b))
+        with self._pass("pass.dequeue"):
+            # 1. dequeue top-B
+            idx_b = _desc_order(pool_prio)[:B]
+            prio_b = pool_prio[idx_b]
+            valid_b = prio_b > NEG
+            if active is not None:
+                valid_b = valid_b & active
+            states_b = pool_states[idx_b]
+            ub_b = pool_ub[idx_b]
+            # the dequeued slots empty (the others among the B are empty
+            # already)
+            pool_prio = pool_prio.index_put((idx_b,),
+                                            torch.where(valid_b, NEG, prio_b))
 
-        # 2. result insertion (Alg. 1 lines 6-10), canonical tie-break
-        rkey_b = torch.where(valid_b, comp.result_key(states_b), NEG)
-        merged = merge_topk(torch.cat([result_states, states_b]),
-                            torch.cat([result_keys, rkey_b]), k)
-        if active is not None:
-            merged = [torch.where(active, new, old) for new, old in
-                      zip(merged, (result_states, result_keys))]
-        result_states, result_keys = merged
+            # 2. result insertion (Alg. 1 lines 6-10), canonical tie-break
+            rkey_b = torch.where(valid_b, comp.result_key(states_b), NEG)
+            merged = merge_topk(torch.cat([result_states, states_b]),
+                                torch.cat([result_keys, rkey_b]), k)
+            if active is not None:
+                merged = [torch.where(active, new, old) for new, old in
+                          zip(merged, (result_states, result_keys))]
+            result_states, result_keys = merged
 
         return (pool_states, pool_prio, pool_ub, result_states, result_keys,
                 (states_b, prio_b, ub_b, valid_b))
@@ -347,44 +360,51 @@ class Engine:
         A = comp.num_actions
         states_b, prio_b, ub_b, valid_b = batch
 
-        # 3. dominance pruning of the dequeued states
-        expand_b = valid_b & (ub_b >= threshold)
-        pruned = (valid_b & ~expand_b).sum()
+        with self._pass("pass.score"):
+            # 3. dominance pruning of the dequeued states
+            expand_b = valid_b & (ub_b >= threshold)
+            pruned = (valid_b & ~expand_b).sum()
 
-        # 4. targeted expansion: score the [B, A] child grid
-        child_prio, child_ub = comp.score_children(states_b)
-        keep = expand_b[:, None] & (child_prio > NEG) & (child_ub >= threshold)
+            # 4. targeted expansion: score the [B, A] child grid
+            child_prio, child_ub = comp.score_children(states_b)
 
-        # greedy parent admission: expand parents (already sorted by
-        # priority) while the cumulative child count fits M; the rest
-        # re-enter the pool unexpanded
-        fits = torch.cumsum(keep.sum(dim=1), dim=0) <= M
-        admitted = expand_b & fits
-        deferred = valid_b & expand_b & ~fits
-        keep = keep & admitted[:, None]
+        with self._pass("pass.select"):
+            keep = expand_b[:, None] & (child_prio > NEG) & \
+                (child_ub >= threshold)
 
-        flat_prio = torch.where(keep, child_prio, NEG).reshape(B * A)
-        top_ci = _desc_order(flat_prio)[:M]
-        top_cp = flat_prio[top_ci]
-        sel_valid = top_cp > NEG
-        sel_parent = top_ci // A
-        sel_action = top_ci % A
-        child_states = comp.materialize(states_b[sel_parent], sel_action)
-        child_states = torch.where(sel_valid[:, None], child_states, 0)
-        child_ub_sel = torch.where(sel_valid, child_ub.reshape(B * A)[top_ci],
-                                   NEG)
+            # greedy parent admission: expand parents (already sorted by
+            # priority) while the cumulative child count fits M; the rest
+            # re-enter the pool unexpanded
+            fits = torch.cumsum(keep.sum(dim=1), dim=0) <= M
+            admitted = expand_b & fits
+            deferred = valid_b & expand_b & ~fits
+            keep = keep & admitted[:, None]
 
-        # 5. merge-sort insert: pool ∪ children ∪ deferred parents
-        pool_states, pool_prio, pool_ub, *overflow = self._insert_impl(
-            (pool_states, child_states, states_b),
-            (pool_prio, top_cp, torch.where(deferred, prio_b, NEG)),
-            (pool_ub, child_ub_sel, torch.where(deferred, ub_b, NEG)),
-            active)
+            flat_prio = torch.where(keep, child_prio, NEG).reshape(B * A)
+            top_ci = _desc_order(flat_prio)[:M]
+            top_cp = flat_prio[top_ci]
+            sel_valid = top_cp > NEG
+            sel_parent = top_ci // A
+            sel_action = top_ci % A
 
-        stats = torch.stack([
-            admitted.sum(), sel_valid.sum(), pruned,
-            (pool_prio > NEG).sum(), threshold.long(),
-            (overflow[1] > NEG).sum()])
+        with self._pass("pass.materialize"):
+            child_states = comp.materialize(states_b[sel_parent], sel_action)
+            child_states = torch.where(sel_valid[:, None], child_states, 0)
+            child_ub_sel = torch.where(
+                sel_valid, child_ub.reshape(B * A)[top_ci], NEG)
+
+        with self._pass("pass.insert"):
+            # 5. merge-sort insert: pool ∪ children ∪ deferred parents
+            pool_states, pool_prio, pool_ub, *overflow = self._insert_impl(
+                (pool_states, child_states, states_b),
+                (pool_prio, top_cp, torch.where(deferred, prio_b, NEG)),
+                (pool_ub, child_ub_sel, torch.where(deferred, ub_b, NEG)),
+                active)
+
+            stats = torch.stack([
+                admitted.sum(), sel_valid.sum(), pruned,
+                (pool_prio > NEG).sum(), threshold.long(),
+                (overflow[1] > NEG).sum()])
         return (pool_states, pool_prio, pool_ub,
                 result_states, result_keys, overflow, stats)
 
@@ -425,8 +445,10 @@ class Engine:
         need_host = ~room | (low & refillable)
         return (t < t_max) & ~need_host & (occ > 0)
 
-    def _fused_step(self, ps, pp, pu, rs, rk, w, sums, active):
-        """One inner super-step plus the accumulator write and the sums.
+    def _fused_step(self, ps, pp, pu, rs, rk, w, sums, t, active,
+                    t_max: int, vpq_nonempty: bool):
+        """One inner super-step plus the accumulator write, the sums and
+        the loop's decision after it.
 
         The block is written at the watermark ``w`` (the reference's
         ``dynamic_update_slice``) and its valid rows, which lead it, are
@@ -436,10 +458,17 @@ class Engine:
         ``acc_cap`` holds the write."""
         ps, pp, pu, rs, rk, overflow, stats = self._step_impl(
             ps, pp, pu, rs, rk, active=active)
-        dst = w + torch.arange(self.B + self.M, device=self.device)
-        for acc, block in zip(self._accumulator(), overflow):
-            acc.index_copy_(0, dst, block)
-        return ps, pp, pu, rs, rk, w + stats[5], sums + stats[:3], stats
+        with self._pass("pass.accumulate"):
+            dst = w + torch.arange(self.B + self.M, device=self.device)
+            for acc, block in zip(self._accumulator(), overflow):
+                acc.index_copy_(0, dst, block)
+            w, sums = w + stats[5], sums + stats[:3]
+            t = t + active
+            # a no-op step leaves occupancy and threshold as they were, so
+            # the last step's are the last live step's
+            active = active & self._cont_flag(vpq_nonempty, t_max, t, w,
+                                              stats[3])
+        return ps, pp, pu, rs, rk, w, sums, t, active, stats
 
     def _macro_flat(self, pool_states, pool_prio, pool_ub, result_states,
                     result_keys, t_max: int, vpq_nonempty: bool):
@@ -456,13 +485,9 @@ class Engine:
         ps, pp, pu, rs, rk = (pool_states, pool_prio, pool_ub,
                               result_states, result_keys)
         for _ in range(t_max):
-            ps, pp, pu, rs, rk, w, sums, stats = self._fused_step(
-                ps, pp, pu, rs, rk, w, sums, active)
-            t = t + active
-            # a no-op step leaves occupancy and threshold as they were, so
-            # the last step's are the last live step's
-            active = active & self._cont_flag(vpq_nonempty, t_max, t, w,
-                                              stats[3])
+            ps, pp, pu, rs, rk, w, sums, t, active, stats = \
+                self._fused_step(ps, pp, pu, rs, rk, w, sums, t, active,
+                                 t_max, vpq_nonempty)
         stats = torch.cat([t[None], sums, w[None], stats[3:5]])
         return ps, pp, pu, rs, rk, stats
 
@@ -499,8 +524,13 @@ class Engine:
             state_width=S, backend=cfg.spill, spill_dir=cfg.spill_dir,
             obs=self.obs)
 
-        states0, prio0, ub0 = self.comp.init_frontier()
-        n0 = states0.shape[0]
+        with self._span("engine.start.frontier"):
+            states0, prio0, ub0 = self.comp.init_frontier()
+            n0 = states0.shape[0]
+            if n0 > C:      # the seeds' read-back waits on the frontier
+                prio0 = prio0.cpu().numpy()
+                states0 = states0.cpu().numpy()
+                ub0 = ub0.cpu().numpy()
 
         if n0 <= C:
             empty = torch.full((C,), NEG, dtype=torch.int32, device=dev)
@@ -510,14 +540,16 @@ class Engine:
             vpq.maybe_push(os_.cpu().numpy(), op_.cpu().numpy(),
                            ou_.cpu().numpy())
         else:  # more seeds than pool slots: top-C on device, rest spilled
-            prio0 = prio0.cpu().numpy()
-            order = np.argsort(-prio0, kind="stable")
-            states0 = states0.cpu().numpy()[order]
-            prio0, ub0 = prio0[order], ub0.cpu().numpy()[order]
-            pool_states = self._to_device(states0[:C])
-            pool_prio = self._to_device(prio0[:C])
-            pool_ub = self._to_device(ub0[:C])
-            vpq.maybe_push(states0[C:], prio0[C:], ub0[C:])
+            with self._span("engine.start.sort"):
+                order = np.argsort(-prio0, kind="stable")
+                states0, prio0, ub0 = states0[order], prio0[order], \
+                    ub0[order]
+            with self._span("engine.start.upload"):
+                pool_states = self._to_device(states0[:C])
+                pool_prio = self._to_device(prio0[:C])
+                pool_ub = self._to_device(ub0[:C])
+            with self._span("engine.start.push"):
+                vpq.maybe_push(states0[C:], prio0[C:], ub0[C:])
 
         return EngineState(
             pool_states=pool_states, pool_prio=pool_prio, pool_ub=pool_ub,
@@ -540,6 +572,7 @@ class Engine:
             return self._macro_step(st, t_cap)
         t0 = time.perf_counter() if self.obs.enabled else 0.0
         with self._span("engine.step"):
+            self._windows.anchor()      # the device is idle here
             # the launches are asynchronous: device time that the enqueue
             # does not cover lands in host_sync, where the stats read waits
             with self._span("engine.device_compute"):
@@ -550,6 +583,7 @@ class Engine:
                     st.result_states, st.result_keys)
             with self._span("engine.host_sync"):
                 stats = dict(zip(_STAT_NAMES, stats.tolist()))
+            self._windows.collect()
             st.steps += 1
             st.host_syncs += 1
             st.expanded += stats["expanded"]
@@ -569,6 +603,7 @@ class Engine:
         """One macro-step of up to ``t_cap`` super-steps and one host read."""
         t0 = time.perf_counter() if self.obs.enabled else 0.0
         with self._span("engine.step"):
+            self._windows.anchor()      # the device is idle here
             with self._span("engine.device_compute"):
                 (st.pool_states, st.pool_prio, st.pool_ub,
                  st.result_states, st.result_keys, stats) = self._macro_impl(
@@ -577,6 +612,7 @@ class Engine:
                     len(st.vpq) > 0)
             with self._span("engine.host_sync"):
                 stats = dict(zip(_MACRO_STAT_NAMES, stats.tolist()))
+            self._windows.collect()
             st.steps += stats["steps"]
             st.host_syncs += 1
             st.expanded += stats["expanded"]
@@ -621,13 +657,15 @@ class Engine:
                     refilled_now = len(r_prio)
                     st.refilled += refilled_now
                     self._m_refilled.inc(refilled_now)
-                    (st.pool_states, st.pool_prio, st.pool_ub,
-                     os_, op_, ou_) = self._insert_impl(
-                        (st.pool_states, self._to_device(r_states)),
-                        (st.pool_prio, self._to_device(r_prio)),
-                        (st.pool_ub, self._to_device(r_ub)))
-                    st.vpq.maybe_push(os_.cpu().numpy(), op_.cpu().numpy(),
-                                      ou_.cpu().numpy())
+                    with self._pass("pass.refill"):
+                        (st.pool_states, st.pool_prio, st.pool_ub,
+                         os_, op_, ou_) = self._insert_impl(
+                            (st.pool_states, self._to_device(r_states)),
+                            (st.pool_prio, self._to_device(r_prio)),
+                            (st.pool_ub, self._to_device(r_ub)))
+                        over = (os_.cpu().numpy(), op_.cpu().numpy(),
+                                ou_.cpu().numpy())
+                    st.vpq.maybe_push(*over)
         # refilled entries are live in the pool (their priorities are > NEG),
         # so a refill that drained the VPQ must not read as completion
         st.pool_occupancy = occ + refilled_now
@@ -638,7 +676,7 @@ class Engine:
         """Close the VPQ and package the result set."""
         with self._span("engine.finalize"):
             st.vpq.close()
-            return EngineResult(
+            res = EngineResult(
                 result_states=st.result_states.cpu().numpy(),
                 result_keys=st.result_keys.cpu().numpy(),
                 steps=st.steps, candidates=st.candidates,
@@ -646,6 +684,8 @@ class Engine:
                 spilled=st.vpq.total_spilled, refilled=st.refilled,
                 late_pruned=st.vpq.total_late_pruned,
                 syncs=st.syncs, host_syncs=st.host_syncs)
+            self._windows.collect()     # the last refill's, after the read
+            return res
 
     # ------------------------------------------------------- checkpointing
     def _ckpt_arrays(self, st: EngineState) -> dict:

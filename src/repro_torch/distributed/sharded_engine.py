@@ -151,6 +151,9 @@ class ShardedEngine:
         # per-shard telemetry land in one registry
         self.obs = self._eng.obs
         self._span = self.obs.tracer.span
+        # the inner engine's pass windows: its halves record them, and
+        # each step here anchors and collects them
+        self._pass, self._windows = self._eng._pass, self._eng._windows
         self._m_rebalanced = self.obs.counter(
             "engine_rebalanced_total",
             "spilled entries moved across shards")
@@ -265,6 +268,7 @@ class ShardedEngine:
             return self._macro_step(st, t_cap)
         t0 = time.perf_counter() if self.obs.enabled else 0.0
         with self._span("engine.step"):
+            self._windows.anchor()      # the device is idle here
             # the launches are asynchronous: device time that the enqueue
             # does not cover lands in host_sync, where the stats read waits
             with self._span("engine.device_compute"):
@@ -272,6 +276,7 @@ class ShardedEngine:
             with self._span("engine.host_sync"):
                 # each name -> one value a shard
                 stats = dict(zip(_STAT_NAMES, zip(*stats.tolist())))
+            self._windows.collect()
             st.steps += 1
             st.syncs += 1          # one bound exchange a step
             st.host_syncs += 1
@@ -355,23 +360,24 @@ class ShardedEngine:
             head = j % K == 0
             overflow, stats, fresh, bounds = self._super_step(
                 st, active, None if head else stale, trace)
-            if head:
-                stale = torch.where(active, fresh, stale)
-            for i, block in enumerate(overflow):
-                dst = w[i] + rows
-                for a, x in zip(acc, block):
-                    a[i].index_copy_(0, dst, x)
-            w = w + stats[:, 5]
-            sums = sums + stats[:, :3]
-            t = t + active
-            if trace:
-                used[:, j] = torch.stack(bounds)
-                fresh_tr[:, j] = fresh
-            if (j + 1) % K == 0 or j + 1 == t_max:
-                # a no-op step leaves occupancy as it was, so the last
-                # step's is the last live step's
-                active = active & self._cont_flag(vpq_nonempty, t_max, t, w,
-                                                  stats[:, 3])
+            with self._pass("pass.accumulate"):
+                if head:
+                    stale = torch.where(active, fresh, stale)
+                for i, block in enumerate(overflow):
+                    dst = w[i] + rows
+                    for a, x in zip(acc, block):
+                        a[i].index_copy_(0, dst, x)
+                w = w + stats[:, 5]
+                sums = sums + stats[:, :3]
+                t = t + active
+                if trace:
+                    used[:, j] = torch.stack(bounds)
+                    fresh_tr[:, j] = fresh
+                if (j + 1) % K == 0 or j + 1 == t_max:
+                    # a no-op step leaves occupancy as it was, so the last
+                    # step's is the last live step's
+                    active = active & self._cont_flag(
+                        vpq_nonempty, t_max, t, w, stats[:, 3])
         cols = [t.expand(shards)[:, None], sums, w[:, None], stats[:, 3:4],
                 stale.long().expand(shards)[:, None]]
         if trace:
@@ -385,11 +391,13 @@ class ShardedEngine:
         rebalance."""
         t0 = time.perf_counter() if self.obs.enabled else 0.0
         with self._span("engine.step"):
+            self._windows.anchor()      # the device is idle here
             with self._span("engine.device_compute"):
                 out = self._macro_impl(st, t_cap,
                                        any(len(v) for v in st.vpqs))
             with self._span("engine.host_sync"):
                 out = np.asarray(out.tolist(), np.int64)
+            self._windows.collect()
             n = int(out[0, 0])            # one exit vote: every shard's
             syncs = -(-n // self.K)       # one exchange a segment begun
             st.steps += n
@@ -481,7 +489,8 @@ class ShardedEngine:
                             self._m_rebalanced.inc(m)
 
         if fill.any():
-            self._insert_blocks(st, blocks)
+            with self._pass("pass.refill"):
+                self._insert_blocks(st, blocks)
         st.pool_occupancy = occ + fill
         st.done = bool((st.pool_occupancy == 0).all()
                        and all(len(v) == 0 for v in st.vpqs))
@@ -513,7 +522,9 @@ class ShardedEngine:
         """Merge the shards' result sets canonically, close the queues and
         package the result."""
         with self._span("engine.finalize"):
-            return self._finalize_impl(st)
+            res = self._finalize_impl(st)
+            self._windows.collect()     # the last refill's, after the read
+            return res
 
     def _finalize_impl(self, st: ShardedEngineState) -> EngineResult:
         result_states, result_keys = merge_topk(

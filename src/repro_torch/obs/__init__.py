@@ -13,13 +13,18 @@ When observability is off the handle is :data:`NOOP` — a process-global
 disabled instance whose registry/tracer are shared null objects, so the
 instrumented line above costs two trivial method calls and nothing else.
 Hot paths that must also skip ``time.perf_counter()`` calls guard on
-``obs.enabled``.
+``obs.enabled``.  The engine's device passes are timed on the device's own
+clock (:mod:`repro_torch.obs.windows`) and recorded as spans of the same
+tracer.
 """
 from __future__ import annotations
 
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                                NULL_METRIC, NULL_REGISTRY, log_buckets)
-from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER, SpanTracer
+from repro_torch.obs.trace import DEVICE_TID, NULL_SPAN, NULL_TRACER, \
+    SpanTracer
+from repro_torch.obs.windows import NULL_WINDOWS, DeviceWindows, \
+    pass_windows
 from repro_torch.obs.report import TOP_LEVEL_SPANS, aggregate, coverage, \
     format_table
 
@@ -67,6 +72,7 @@ __all__ = [
     "Observability", "NOOP",
     "MetricsRegistry", "Counter", "Gauge", "Histogram", "log_buckets",
     "NULL_METRIC", "NULL_REGISTRY",
-    "SpanTracer", "NULL_TRACER", "NULL_SPAN",
+    "SpanTracer", "NULL_TRACER", "NULL_SPAN", "DEVICE_TID",
+    "DeviceWindows", "NULL_WINDOWS", "pass_windows",
     "TOP_LEVEL_SPANS", "aggregate", "coverage", "format_table",
 ]

@@ -26,6 +26,11 @@ import threading
 import time
 from typing import List, Optional
 
+#: the ``tid`` of device windows (``repro_torch.obs.windows``): their own
+#: track, "device", in the Chrome / Perfetto export.  A Python thread id
+#: is an address and never this small.
+DEVICE_TID = 1
+
 
 class _Span:
     """Context manager recording one completed span on ``__exit__``.
@@ -65,8 +70,10 @@ class SpanTracer:
     def span(self, name: str) -> _Span:
         return _Span(self, name)
 
-    def _record(self, name: str, start: float, dur: float) -> None:
-        tid = threading.get_ident()
+    def _record(self, name: str, start: float, dur: float,
+                tid: Optional[int] = None) -> None:
+        if tid is None:
+            tid = threading.get_ident()
         with self._lock:
             self._ring[self._next % self.capacity] = (name, start, dur,
                                                       tid)
@@ -102,7 +109,9 @@ class SpanTracer:
     def chrome_trace(self, pid: Optional[int] = None) -> dict:
         """Chrome trace-event JSON object (``{"traceEvents": [...]}``)
         with ``ph: "X"`` complete events, µs timestamps anchored to the
-        epoch wall clock.  Loadable in Perfetto as-is."""
+        epoch wall clock.  Loadable in Perfetto as-is.  Device windows
+        (``tid`` :data:`DEVICE_TID`) get a track named "device", sorted
+        below the host's threads."""
         if pid is None:
             pid = os.getpid()
         base = self._epoch_wall - self._epoch_perf
@@ -112,6 +121,12 @@ class SpanTracer:
                 "name": name, "ph": "X", "pid": pid, "tid": tid,
                 "ts": (base + start) * 1e6, "dur": dur * 1e6,
             })
+        if any(e["tid"] == DEVICE_TID for e in events):
+            events[:0] = [
+                {"name": "thread_name", "ph": "M", "pid": pid,
+                 "tid": DEVICE_TID, "args": {"name": "device"}},
+                {"name": "thread_sort_index", "ph": "M", "pid": pid,
+                 "tid": DEVICE_TID, "args": {"sort_index": 1 << 30}}]
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
     def export_chrome_trace(self, path: str,

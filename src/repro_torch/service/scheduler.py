@@ -336,58 +336,65 @@ class DiscoveryService:
         by_key: Dict[str, tuple] = {}  # within-batch dedup of identical specs
 
         for i, req in enumerate(requests):
-            try:
-                # validate only — lowering to a computation is deferred to
-                # cache misses, so a cache hit costs no compile work
-                graph = req.validate(self.registry)
-                key = make_cache_key(graph.fingerprint, req.canonical_spec())
+            # validation, the cache key and the task (engine.start in it)
+            with self.obs.span("service.admit"):
+                try:
+                    # validate only — lowering to a computation is deferred
+                    # to cache misses, so a cache hit costs no compile work
+                    graph = req.validate(self.registry)
+                    key = make_cache_key(graph.fingerprint,
+                                         req.canonical_spec())
+                    if req.use_cache:
+                        payload = self.cache.get(key)
+                        if payload is not None:
+                            self._m_cache_hits.inc()
+                            lat = time.perf_counter() - t0
+                            self._h_request.observe(lat)
+                            responses[i] = self._payload_to_response(
+                                req, payload, cached=True, latency_s=lat)
+                            continue
+                        if key in by_key:  # identical spec in this batch
+                            by_key[key][0].append(i)
+                            continue
+                    entry = ([i], key if req.use_cache else None,
+                             self._make_task(req, graph))
+                    self._m_cache_misses.inc()
+                except (TypeError, ValueError) as e:
+                    # ValidationError and any mistyped field the validators
+                    # trip over: reject this request, keep serving the batch
+                    self._m_validation_errors.inc()
+                    responses[i] = DiscoveryResponse(
+                        request_id=req.request_id,
+                        workload=str(req.workload), status="error",
+                        error=str(e))
+                    continue
+                pending.append(entry)
                 if req.use_cache:
-                    payload = self.cache.get(key)
-                    if payload is not None:
-                        self._m_cache_hits.inc()
-                        lat = time.perf_counter() - t0
-                        self._h_request.observe(lat)
-                        responses[i] = self._payload_to_response(
-                            req, payload, cached=True, latency_s=lat)
-                        continue
-                    if key in by_key:  # identical spec already in this batch
-                        by_key[key][0].append(i)
-                        continue
-                entry = ([i], key if req.use_cache else None,
-                         self._make_task(req, graph))
-                self._m_cache_misses.inc()
-            except (TypeError, ValueError) as e:
-                # ValidationError and any mistyped field the validators
-                # trip over: reject this request, keep serving the batch
-                self._m_validation_errors.inc()
-                responses[i] = DiscoveryResponse(
-                    request_id=req.request_id, workload=str(req.workload),
-                    status="error", error=str(e))
-                continue
-            pending.append(entry)
-            if req.use_cache:
-                by_key[key] = entry
+                    by_key[key] = entry
 
         with self.obs.span("service.drive"):
             self.scheduler.drive([task for _, _, task in pending])
 
         for indices, key, task in pending:
-            payload = task.finalize()
-            if isinstance(task, EngineQueryTask):
-                # count only the steps this admission actually ran: a
-                # resumed state arrives carrying its pre-crash step count
-                ran = task.state.steps - task.steps_at_admission
-                self.engine_steps_total += ran
-                self._m_engine_steps.inc(ran)
-            if key is not None:
-                self.cache.put(key, payload)
-            for j, i in enumerate(indices):
-                if j > 0:   # within-batch dedup joins are cache hits too
-                    self._m_cache_hits.inc()
-                lat = time.perf_counter() - t0
-                self._h_request.observe(lat)
-                responses[i] = self._payload_to_response(
-                    requests[i], payload, cached=j > 0, latency_s=lat)
+            # the task's finalize and its responses
+            with self.obs.span("service.finalize"):
+                payload = task.finalize()
+                if isinstance(task, EngineQueryTask):
+                    # count only the steps this admission actually ran: a
+                    # resumed state arrives carrying its pre-crash step
+                    # count
+                    ran = task.state.steps - task.steps_at_admission
+                    self.engine_steps_total += ran
+                    self._m_engine_steps.inc(ran)
+                if key is not None:
+                    self.cache.put(key, payload)
+                for j, i in enumerate(indices):
+                    if j > 0:   # within-batch dedup joins are cache hits too
+                        self._m_cache_hits.inc()
+                    lat = time.perf_counter() - t0
+                    self._h_request.observe(lat)
+                    responses[i] = self._payload_to_response(
+                        requests[i], payload, cached=j > 0, latency_s=lat)
 
         self.requests_served += len(requests)
         return responses   # type: ignore[return-value]
@@ -424,16 +431,19 @@ class DiscoveryService:
         engine_key = make_cache_key(graph.fingerprint, engine_spec)
         engine = self._engines.get(engine_key)
         if engine is None:
-            compiled = compile_request(req, self.registry, graph=graph,
-                                       device=self.device)
-            if req.observe and self.obs.enabled:
-                # observing engines record into the service registry so a
-                # single snapshot covers the whole process (DESIGN.md §16)
-                compiled.engine_cfg.observability = self.obs
-            if compiled.engine_cfg.shards > 1:
-                engine = ShardedEngine(compiled.comp, compiled.engine_cfg)
-            else:
-                engine = Engine(compiled.comp, compiled.engine_cfg)
+            with self.obs.span("service.compile"):
+                compiled = compile_request(req, self.registry, graph=graph,
+                                           device=self.device)
+                if req.observe and self.obs.enabled:
+                    # observing engines record into the service registry
+                    # so a single snapshot covers the whole process
+                    # (DESIGN.md §16)
+                    compiled.engine_cfg.observability = self.obs
+                if compiled.engine_cfg.shards > 1:
+                    engine = ShardedEngine(compiled.comp,
+                                           compiled.engine_cfg)
+                else:
+                    engine = Engine(compiled.comp, compiled.engine_cfg)
             self._engines.put(engine_key, engine)
         return EngineQueryTask(req, engine, obs=self.obs)
 
