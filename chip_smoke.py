@@ -429,6 +429,20 @@ PATTERN_M = dict(m_edges=3, k=3)
 MI_KERNEL = "masked_intersect_kernel"
 MI_MMA_KERNEL = "masked_intersect_kernel_mma"
 
+# clique_children (B, M, N, W): ragged rows, widths odd and even (rows 16-
+# and 8-byte aligned), grids with a partial last block; the shape of this
+# script's own main path (phases 4, 8 and 12: FULL_GRAPH, M = N = 32,768,
+# S 2,050); then the benchmark's main path (its cells: B 64, M = N =
+# 46,336, S 2,898) and the rows a step it finds valid there (candidates /
+# steps, PERF.md)
+CHILDREN_RAGGED = ((1, 1, 1, 1), (2, 9, 32, 1), (3, 17, 64, 2),
+                   (5, 100, 97, 4), (7, 333, 160, 5), (64, 1001, 1000, 32))
+CHILDREN_SMOKE = (64, 32768, 32768, 1024)
+CHILDREN_MAIN = (64, 46336, 46336, 1448)
+CHILDREN_MAIN_VALID = 66
+# the most device operations one clique_children call may put on the card
+CHILDREN_MAX_OPS = 2
+
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 POPC_PER_CLOCK_PER_SM = 16       # CUDA C++ Programming Guide, CC 9.0
 # H100 SXM dense peaks (NVIDIA data sheet): fp32 outside the tensor cores,
@@ -939,6 +953,119 @@ def phase_kernels(env: dict) -> dict:
     return record
 
 
+def children_inputs(rng, b: int, m: int, n: int, w: int, pattern: str):
+    """clique_children's operands on the card: random words for the batch
+    (sizes included, so that ``|V| + 1`` also wraps) and the ext rows,
+    parents and vertices at random with the bit-31 vertices first, and
+    ``valid`` by ``pattern``: a leading ``prefix`` (the main path's
+    layout), ``all``, ``none`` or ``random`` rows."""
+    import numpy as np
+    import torch
+
+    def words(*shape):
+        x = rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+        return torch.from_numpy(x.view(np.int32)).cuda()
+    action = rng.integers(0, n, m)
+    high = np.arange(31, n, 32)[:m]
+    action[:len(high)] = high
+    prefix = CHILDREN_MAIN_VALID if (b, m, n, w) == CHILDREN_MAIN \
+        else max(1, m // 3)
+    valid = {"prefix": np.arange(m) < prefix, "all": np.ones(m, bool),
+             "none": np.zeros(m, bool),
+             "random": rng.random(m) < 0.3}[pattern]
+    parent = rng.integers(0, b, m)
+    return (words(b, 2 * w + 2), torch.from_numpy(parent).cuda(),
+            torch.from_numpy(action).cuda(), torch.from_numpy(valid).cuda(),
+            words(n, w))
+
+
+def children_bound_ms(states, parent, action, valid, ext) -> float:
+    """Least time for one clique_children call: the ``[M, S]`` block
+    written once, ``valid`` read once, and each valid row's parent and
+    vertex, its parent's row (V, P, ``|V|``) and its ext row read once,
+    over the HBM rate."""
+    m, s = parent.shape[0], states.shape[1]
+    w = ext.shape[1]
+    rows = int(valid.sum())
+    nbytes = 4 * m * s + m + rows * (16 + 4 * (2 * w + 1) + 4 * w)
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def check_clique_children(env: dict) -> dict:
+    """clique_children against its plain version bit for bit, zero rows
+    included: every pattern of valid rows at the ragged shapes, at this
+    script's main path's and at the benchmark's; the calls of each shape, profiled together, put at most
+    ``CHILDREN_MAX_OPS`` device operations a call and no memset on the
+    card;
+    then the kernel timed at the main path's shape beside its plain
+    version and its bytes bound.  Returns the record."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import clique_children as cc
+
+    rng = np.random.default_rng(29)
+    patterns = ("prefix", "all", "none", "random")
+    counts = []
+    for shape in CHILDREN_RAGGED + (CHILDREN_SMOKE, CHILDREN_MAIN):
+        calls = []
+        for pattern in patterns:
+            args = children_inputs(rng, *shape, pattern)
+            want = cc.clique_children_plain(*args)
+            got = cc.clique_children(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                rows = (got != want).any(dim=1).nonzero()[:5, 0].tolist()
+                fail(f"clique_children (B, M, N, W)={shape} valid={pattern}: "
+                     f"differs from its plain version (rows {rows} ...)")
+            calls.append(args)
+            del want, got
+
+        def each_call():
+            for args in calls:
+                cc.clique_children(*args)
+                torch.cuda.synchronize()
+        # one profile over the four calls, each followed by a synchronize;
+        # a profile that lost events (fewer than one a call, seen once on
+        # the card) is taken again
+        ops = device_ops(each_call)
+        if len(ops) < len(calls):
+            print(f"[2 kernel] clique_children {shape}: the profile showed "
+                  f"{len(ops)} device operations for {len(calls)} calls; "
+                  f"profiled again")
+            ops = device_ops(each_call)
+        called = sorted({name for _, name in ops})
+        if not len(calls) <= len(ops) <= CHILDREN_MAX_OPS * len(calls) or \
+                any(cat == "gpu_memset" for cat, _ in ops):
+            fail(f"clique_children {shape}: {len(calls)} calls put "
+                 f"{len(ops)} device operations on the card: {called}")
+        counts.append(len(ops) / len(calls))
+        print(f"[2 kernel] clique_children (B, M, N, W)={shape}: exact, "
+              f"zero rows included, valid {'/'.join(patterns)}; "
+              f"{len(ops)} device operations in {len(calls)} calls: "
+              f"{called}")
+    print(f"[2 kernel] clique_children: {sorted(set(counts))} device "
+          f"operations a call, no memset (at most {CHILDREN_MAX_OPS} a "
+          f"call)")
+    record = dict(max_abs_err=0)
+    for pattern in ("prefix", "all"):
+        args = children_inputs(rng, *CHILDREN_MAIN, pattern)
+        ms = queued_ms(lambda: cc.clique_children(*args))
+        bound = children_bound_ms(*args)
+        if pattern == "prefix":
+            plain_ms = cuda_ms(lambda: cc.clique_children_plain(*args), 3, 1)
+            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by="bytes", call_ms=cuda_ms(
+                              lambda: cc.clique_children(*args), 20))
+        else:
+            record.update(all_valid_ms=ms, all_valid_bound_ms=bound)
+        print(f"[2 kernel] clique_children {CHILDREN_MAIN} valid={pattern}: "
+              f"ms={ms:.4f} bound_ms={bound:.4f} (bytes, "
+              f"{100 * bound / ms:.1f}%)"
+              + (f" plain_ms={plain_ms:.3f} call_ms={record['call_ms']:.4f}"
+                 if pattern == "prefix" else "") + f" ({env['smi']})")
+    return record
+
+
 def same_run(what: str, a, b, counters=COUNTERS) -> None:
     """Two engine results must agree byte for byte, and on ``counters``."""
     if a.result_keys.tobytes() != b.result_keys.tobytes() or \
@@ -1070,6 +1197,7 @@ def phase_main_path() -> int:
     from repro_torch.core.clique import make_clique_computation
     from repro_torch.core.engine import Engine, EngineConfig
     from repro_torch.data.synthetic_graphs import planted_clique_graph
+    from repro_torch.kernels import clique_children as cc
     from repro_torch.kernels import masked_intersect as mi
     from repro_torch.obs import Observability, format_table
 
@@ -1084,6 +1212,7 @@ def phase_main_path() -> int:
     torch.cuda.reset_peak_memory_stats()
 
     mi.reset_launches()
+    cc.reset_launches()
     t0 = time.perf_counter()
     res = eng.run()
     torch.cuda.synchronize()
@@ -1101,6 +1230,7 @@ def phase_main_path() -> int:
           f"keys={[int(x) for x in res.result_keys]} {counters} "
           f"wall={wall_s:.3f}s ms_per_step={1e3 * wall_s / res.steps:.3f} "
           f"masked_intersect_launches={launches} "
+          f"clique_children_launches={cc.launches} "
           f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
     print(f"[4 main] ms per step by span: {span_ms(obs, res.steps)}")
     print(format_table(obs.tracer.spans(), wall_s=wall_s))
@@ -1112,7 +1242,10 @@ def phase_main_path() -> int:
     if launches != res.steps:
         fail(f"masked_intersect launched {launches} times in "
              f"{res.steps} steps")
-    return launches, comp, res, wall_s
+    if cc.launches != res.steps:
+        fail(f"clique_children launched {cc.launches} times in {res.steps} "
+             f"steps")
+    return launches, cc.launches, comp, res, wall_s
 
 
 def device_activity(e):
@@ -1257,6 +1390,7 @@ def phase_macro_path(comp, want, idle_t1: float) -> dict:
     the run's result."""
     import torch
     from repro_torch.core.engine import Engine, EngineConfig
+    from repro_torch.kernels import clique_children as cc
     from repro_torch.kernels import masked_intersect as mi
     from repro_torch.obs import Observability
 
@@ -1267,11 +1401,15 @@ def phase_macro_path(comp, want, idle_t1: float) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mi.reset_launches()
+    cc.reset_launches()
     t0 = time.perf_counter()
     res = eng.run()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = mi.launches
+    if cc.launches != launches:     # no-op steps too: one of each a pass
+        fail(f"T={MACRO_T}: {cc.launches} clique_children launches, "
+             f"{launches} masked_intersect launches")
     same_run(f"phase 8 (T={MACRO_T}) against phase 4 (T=1)", res, want,
              [c for c in COUNTERS if c != "host_syncs"])
     if not res.host_syncs < res.steps:
@@ -1395,22 +1533,28 @@ def phase_sharded(comp, want, env: dict) -> dict:
 
 
 def sharded_run(comp, cfg: dict, obs=None):
-    """One ``ShardedEngine(comp, EngineConfig(**cfg)).run()`` on the card,
-    its peak memory its own: (result, wall s, ``masked_intersect``
-    launches, peak GiB)."""
+    """One ``ShardedEngine(comp, EngineConfig(**cfg)).run()`` of a clique
+    computation on the card, its peak memory its own: (result, wall s,
+    ``masked_intersect`` launches, peak GiB).  Fails unless each shard's
+    pass launched ``clique_children`` as often as ``masked_intersect``."""
     import torch
     from repro_torch.core.engine import EngineConfig
     from repro_torch.distributed import ShardedEngine
+    from repro_torch.kernels import clique_children as cc
     from repro_torch.kernels import masked_intersect as mi
     eng = ShardedEngine(comp, EngineConfig(
         **cfg, observe=obs is not None, observability=obs))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mi.reset_launches()
+    cc.reset_launches()
     t0 = time.perf_counter()
     res = eng.run()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    if cc.launches != mi.launches:  # each shard's pass launches both
+        fail(f"sharded {cfg}: {cc.launches} clique_children launches, "
+             f"{mi.launches} masked_intersect launches")
     return res, wall_s, mi.launches, torch.cuda.max_memory_allocated() / 2**30
 
 
@@ -2049,6 +2193,20 @@ def check_csr(rng) -> None:
 SEGMENT_MAX_OPS = 2
 
 
+def device_ops(call) -> list:
+    """``call()`` alone under torch.profiler, followed by a synchronize:
+    the device operations it put on the card, as (category, name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return [(device_activity(e), e.name()) for e in
+            prof.profiler.kineto_results.events()
+            if device_activity(e) is not None]
+
+
 def check_segment_ops(rng) -> None:
     """``torch.profiler`` over each single ``segment_matmul`` call
     (one-element and 16-byte rows, fp32 and bf16, sorted and random
@@ -2057,7 +2215,6 @@ def check_segment_ops(rng) -> None:
     copies, sets) on the card and no memset."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import segment_matmul as sm
 
     calls = []
@@ -2076,13 +2233,7 @@ def check_segment_ops(rng) -> None:
     torch.cuda.synchronize()
     counts, names = [], set()
     for what, msg, dst, n in calls:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sm.segment_matmul(msg, dst, n)
-            torch.cuda.synchronize()
-        ops = [(device_activity(e), e.name()) for e in
-               prof.profiler.kineto_results.events()
-               if device_activity(e) is not None]
+        ops = device_ops(lambda: sm.segment_matmul(msg, dst, n))
         sets = [name for cat, name in ops if cat == "gpu_memset"]
         called = sorted({name.split("<")[0].split("::")[-1]
                          for _, name in ops})
@@ -3200,9 +3351,10 @@ def main() -> int:
         return sharded_child(json.loads(sys.argv[2]))
     env = phase_environment()
     kernel = phase_kernels(env)
+    children = check_clique_children(env)
     ragged = phase_coworkload_kernels()
     phase_quickstart_parity()
-    launches, comp, res, wall4_s = phase_main_path()
+    launches, children_launches, comp, res, wall4_s = phase_main_path()
     idle_t1 = phase_profile(comp, res)
     cowork = phase_coworkload(planted_clique_graph(**FULL_GRAPH), ragged)
     phase_merge_topk()
@@ -3246,6 +3398,11 @@ def main() -> int:
             **pattern_launches, **durable_launches, **service_launches,
             **sharded_launches, **stale_launches,
             **sharded_durable_launches})]
+    kernels.append(dict(
+        name="clique_children", route="cuda",
+        source="src/repro_torch/kernels/csrc/clique_children.cu",
+        replaces=None, launches=children_launches, library_ms=None,
+        **children))
     for name, line in (("segment_matmul", 59), ("embedding_bag", 46),
                        ("flash_attention", 84)):
         # the fp32 record first; a bf16 one beside it where both run

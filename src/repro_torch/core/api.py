@@ -69,6 +69,13 @@ class SubgraphComputation:
     # (None: cuda, as for every entry point)
     device: Optional[torch.device] = None
 
+    # (states_b [B, S], parent [M], action [M], valid [M]) -> child states
+    # [M, S]: materialize of states_b[parent] and action where valid, zero
+    # rows elsewhere, in one call; the engine calls it in place of gathering
+    # the parents, materialize and zeroing the invalid rows (None: it does
+    # those)
+    materialize_selected: Optional[Callable[..., torch.Tensor]] = None
+
     def __post_init__(self):
         if self.state_width <= 0:
             raise ValueError(

@@ -13,7 +13,11 @@ and the same user functions: ``priority(s) = |V|·(N+1) + |P|``, result key
 ``|V|``, upper bound ``|V| + |P|``.  Child scoring — ``popcount(P ∩ N(v) ∩
 {u > v})`` for the whole ``[B, N]`` grid — goes through
 :func:`repro_torch.kernels.ops.frontier_expand`: the Hopper kernel for a
-computation on ``cuda``, its plain version on the CPU.
+computation on ``cuda``, its plain version on the CPU.  The engine builds a
+step's child rows through ``materialize_selected``,
+:func:`repro_torch.kernels.ops.clique_children`, the same way: one kernel
+writes the ``[M, S]`` block, where gathering, ``materialize`` and zeroing
+the invalid rows take some twenty passes over it.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from . import bitset
 from .api import NEG, SubgraphComputation, resolve_device
 from .graph import GraphStore
 from ..kernels import ops as kops
+from ..kernels.clique_children import child_rows
 
 
 def make_clique_computation(graph: GraphStore,
@@ -76,10 +81,11 @@ def make_clique_computation(graph: GraphStore,
         return child_prio, child_ub
 
     def materialize(states, actions):
-        v_bits, p_bits, size, _ = _unpack(states)
-        new_v = bitset.set_bit(v_bits, actions)
-        new_p = p_bits & ext_mask[actions]
-        return _pack(new_v, new_p, size + 1)
+        return child_rows(states, actions, ext_mask)
+
+    def materialize_selected(states_b, parent, action, valid):
+        return kops.clique_children(states_b, parent, action, valid,
+                                    ext_mask)
 
     def result_key(states):
         return states[:, 2 * w]          # clique size; always relevant
@@ -96,4 +102,5 @@ def make_clique_computation(graph: GraphStore,
         name="clique", state_width=S, num_actions=n,
         init_frontier=init_frontier, score_children=score_children,
         materialize=materialize, result_key=result_key,
-        upper_bound=upper_bound, describe=describe, device=device)
+        upper_bound=upper_bound, describe=describe, device=device,
+        materialize_selected=materialize_selected)

@@ -8,7 +8,10 @@ The port of ``repro.core.engine`` for one device.  One *super-step*
 2. **result insertion** into the top-k result set (:func:`merge_topk`);
 3. **pruning** against the k-th result key (dequeued states and children);
 4. **targeted expansion** — ``score_children`` over the ``[B, A]`` grid,
-   greedy parent admission under the materialization budget ``M``;
+   greedy parent admission under the materialization budget ``M``, the
+   ``M`` selected children materialized (by the computation's
+   ``materialize_selected`` where it has one: the clique computation's is
+   one kernel that writes the ``[M, S]`` block);
 5. **insert** — pool ∪ children ∪ deferred parents merge-sorted by
    priority; the top ``C`` stay on the device, the rest spill to the
    virtual priority queue.
@@ -388,8 +391,14 @@ class Engine:
             sel_action = top_ci % A
 
         with self._pass("pass.materialize"):
-            child_states = comp.materialize(states_b[sel_parent], sel_action)
-            child_states = torch.where(sel_valid[:, None], child_states, 0)
+            if comp.materialize_selected is not None:
+                child_states = comp.materialize_selected(
+                    states_b, sel_parent, sel_action, sel_valid)
+            else:
+                child_states = comp.materialize(states_b[sel_parent],
+                                                sel_action)
+                child_states = torch.where(sel_valid[:, None], child_states,
+                                           0)
             child_ub_sel = torch.where(
                 sel_valid, child_ub.reshape(B * A)[top_ci], NEG)
 

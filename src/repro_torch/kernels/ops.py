@@ -8,6 +8,7 @@ There is no mode switch.
 """
 from __future__ import annotations
 
+from .clique_children import clique_children
 from .embedding_bag import embedding_bag
 from .flash_attention import flash_attention
 from .frontier_expand import frontier_expand
@@ -15,4 +16,4 @@ from .masked_intersect import masked_intersect
 from .segment_matmul import segment_matmul
 
 __all__ = ["masked_intersect", "frontier_expand", "segment_matmul",
-           "embedding_bag", "flash_attention"]
+           "embedding_bag", "flash_attention", "clique_children"]

@@ -17,6 +17,8 @@ from repro_torch import carry
 from repro_torch.core import engine
 from repro_torch.core.api import NEG
 from repro_torch.core.clique import make_clique_computation
+from repro_torch.core.iso import build_iso_index, make_iso_computation
+from repro_torch.core.weighted_clique import make_weighted_clique_computation
 from repro_torch.data import synthetic_graphs as gen
 
 torch.set_num_threads(2)
@@ -222,6 +224,71 @@ def test_carry_rejects_state_with_spilled_entries():
             port, {name: np.asarray(getattr(st_ref, name))
                    for name in carry.STATE_ARRAYS}, _counters(st_ref))
     st_ref.vpq.close()
+
+
+# ------------------------------------------------- the materialize hook
+def _iso_computation():
+    g = gen.labeled_graph(90, 300, 3, seed=4)
+    return make_iso_computation(g, [(0, 1), (1, 2), (2, 3)], [0, 1, 0, 2],
+                                build_iso_index(g, 3, device="cpu"),
+                                device="cpu")
+
+
+def test_only_the_clique_computation_builds_its_child_rows_itself():
+    """The clique computation carries materialize_selected; iso and the
+    pointwise computations (weighted clique among them) keep the engine's
+    generic gather, materialize and zeroing."""
+    g = gen.densifying_graph(40, 60, 0)
+    assert make_clique_computation(g, device="cpu").materialize_selected \
+        is not None
+    weighted = make_weighted_clique_computation(
+        g, np.arange(1, g.n + 1), device="cpu")
+    for comp in (_iso_computation(), weighted):
+        assert comp.materialize_selected is None, comp.name
+
+
+def _counting(comp, field):
+    """comp with its callback ``field`` wrapped to count its calls."""
+    calls = []
+    fn = getattr(comp, field)
+
+    def counted(*args):
+        calls.append(args[1].shape[0])
+        return fn(*args)
+    return dataclasses.replace(comp, **{field: counted}), calls
+
+
+@pytest.mark.parametrize("T", [1, 4])
+def test_materialize_hook_runs_each_pass(T):
+    """The engine calls materialize_selected once a pass, the no-op steps
+    of a macro-step included: one a step at T = 1, T a host read at T = 4,
+    and never the generic materialize.  The run equals the one through the
+    generic path byte for byte, which calls materialize once a pass."""
+    comp = make_clique_computation(gen.densifying_graph(60, 300, 1),
+                                   device="cpu")
+    cfg = engine.EngineConfig(k=3, batch=8, pool_capacity=64,
+                              steps_per_sync=T)
+    hooked, calls = _counting(comp, "materialize_selected")
+    hooked, generic_calls = _counting(hooked, "materialize")
+    res = engine.Engine(hooked, cfg).run()
+    assert len(calls) == T * res.host_syncs >= res.steps > 1
+    assert generic_calls == []
+    plain, plain_calls = _counting(
+        dataclasses.replace(comp, materialize_selected=None), "materialize")
+    plain_res = engine.Engine(plain, cfg).run()
+    _assert_same_result(res, plain_res)
+    assert len(plain_calls) == T * plain_res.host_syncs
+
+
+def test_iso_run_takes_the_generic_materialize():
+    """An iso computation has no hook: each pass gathers its parents and
+    calls the computation's own materialize."""
+    comp, calls = _counting(_iso_computation(), "materialize")
+    assert comp.materialize_selected is None
+    res = engine.Engine(comp, engine.EngineConfig(
+        k=3, batch=32, pool_capacity=4096)).run()
+    assert res.steps > 1 and res.candidates > 0
+    assert len(calls) == res.host_syncs == res.steps
 
 
 # ------------------------------------------------------- device and config

@@ -1,17 +1,24 @@
 """The port's masked_intersect / frontier_expand on the CPU (the plain
 PyTorch version) against repro's pure-jnp oracle and its Pallas kernel in
-interpret mode, on the shape sweeps of tests/test_kernels.py.  Exact
-equality: this is integer work.  The Hopper kernel itself runs only on the
-card (chip_smoke.py holds it against the plain version there)."""
+interpret mode, on the shape sweeps of tests/test_kernels.py; the plain
+clique_children against the engine's generic materialize and repro's.
+Exact equality:
+this is integer work.  The Hopper kernels themselves run only on the card
+(chip_smoke.py holds them against the plain versions there)."""
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
 from repro.core import bitset as ref_bitset
+from repro.core.clique import make_clique_computation as ref_make_clique
+from repro.data import synthetic_graphs as ref_gen
 from repro.kernels import masked_intersect as ref_mi
 from repro.kernels import ref
 from repro_torch.core import bitset
+from repro_torch.core.clique import make_clique_computation
+from repro_torch.data import synthetic_graphs as gen
+from repro_torch.kernels import clique_children as cc
 from repro_torch.kernels import masked_intersect as mi
 from repro_torch.kernels import ops, ref as port_ref
 
@@ -116,6 +123,123 @@ def test_cpu_path_does_not_count_launches():
     mi.reset_launches()
     ops.masked_intersect(_t(_words(rng, 3, 2)), _t(_words(rng, 5, 2)))
     assert mi.launches == 0
+
+
+# ------------------------------------------------------- clique_children
+def _clique_step(n, b, m, valid_rows, seed):
+    """A clique computation on the CPU over an n-vertex graph, a batch of
+    b of its states (seeds and their children) and m selections: parents
+    and actions at random, the bit-31 vertices among the actions, the
+    first ``valid_rows`` selections valid."""
+    comp = make_clique_computation(gen.densifying_graph(n, 4 * n, seed),
+                                   device="cpu")
+    rng = np.random.default_rng(seed)
+    seeds = comp.init_frontier()[0]
+    rows = torch.from_numpy(rng.integers(0, n, b))
+    states_b = comp.materialize(seeds[rows], torch.from_numpy(
+        rng.integers(0, n, b)))
+    states_b[: b // 2] = seeds[rows[: b // 2]]
+    parent = torch.from_numpy(rng.integers(0, b, m))
+    action = torch.from_numpy(rng.integers(0, n, m))
+    action[:n // 32] = torch.arange(31, n, 32)[:m]
+    valid = torch.arange(m) < valid_rows
+    return comp, states_b, parent, action, valid
+
+
+@pytest.mark.parametrize("n", [70, 100], ids=["W3", "W4"])
+@pytest.mark.parametrize("valid_rows", [0, 5, 40],
+                         ids=["none", "prefix", "all"])
+def test_clique_children_plain_equals_the_generic_materialize(n, valid_rows):
+    """The clique computation's materialize_selected (on the CPU the plain
+    clique_children) gives the engine's generic expression bit for bit:
+    the parents gathered, materialize, the invalid rows zeroed; and with
+    repro's materialize in its place; with W odd and even, a valid prefix,
+    every row valid and none (a no-op step)."""
+    comp, states_b, parent, action, valid = _clique_step(n, 12, 40,
+                                                         valid_rows, n)
+    want = torch.where(valid[:, None],
+                       comp.materialize(states_b[parent], action), 0)
+    got = comp.materialize_selected(states_b, parent, action, valid)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    # and repro's materialize (jnp) on the same parents and vertices
+    ref = ref_make_clique(ref_gen.densifying_graph(n, 4 * n, n))
+    ref_rows = np.asarray(ref.materialize(
+        jnp.asarray(states_b[parent].numpy()), jnp.asarray(action.numpy())))
+    np.testing.assert_array_equal(
+        got.numpy(), np.where(valid.numpy()[:, None], ref_rows, 0))
+    assert (got[valid_rows:] == 0).all()
+    # the vertex's bit is set in each valid child, bit 31 included
+    w = (n + 31) // 32
+    assert bitset.get_bit(got[:valid_rows, :w], action[:valid_rows]).all()
+
+
+def test_clique_children_cpu_path_does_not_count_launches():
+    comp, states_b, parent, action, valid = _clique_step(70, 4, 8, 3, 0)
+    cc.reset_launches()
+    comp.materialize_selected(states_b, parent, action, valid)
+    assert cc.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "index_dtype", "width", "length",
+                                 "device"])
+def test_clique_children_rejects_what_the_kernel_does_not_take(bad):
+    states_b = torch.zeros((4, 8), dtype=torch.int32)
+    ext = torch.zeros((100, 3), dtype=torch.int32)
+    parent = action = torch.zeros(6, dtype=torch.int64)
+    valid = torch.ones(6, dtype=torch.bool)
+    if bad == "dtype":
+        states_b = states_b.to(torch.int64)
+    elif bad == "index_dtype":
+        action = action.to(torch.int32)
+    elif bad == "width":
+        ext = torch.zeros((100, 4), dtype=torch.int32)
+    elif bad == "length":
+        valid = valid[:5]
+    else:   # neither cpu nor cuda: no plain fallback, it raises
+        states_b, parent, action, valid, ext = (
+            t.to("meta") for t in (states_b, parent, action, valid, ext))
+    with pytest.raises((TypeError, ValueError)):
+        cc.clique_children(states_b, parent, action, valid, ext)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card, so that the wrapper takes
+    its kernel branch up to the launch."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_clique_children_hands_the_kernel_its_operands(monkeypatch):
+    """On a CUDA tensor the wrapper makes one C call: the five operands'
+    pointers in order, the output's, then M, B, N and W; the output is
+    [M, S] int32 and the call counts as a launch."""
+    launched = []
+    monkeypatch.setattr(cc, "launches", 0)
+    monkeypatch.setattr(cc.build, "launch",
+                        lambda name, argtypes, *args: launched.append(
+                            (name, args)))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
+    empty = torch.empty
+    made = []
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **kw:
+                        made.append(empty(*a, **kw)) or made[-1])
+    operands = (torch.zeros((5, 8), dtype=torch.int32),
+                torch.zeros(7, dtype=torch.int64),
+                torch.zeros(7, dtype=torch.int64),
+                torch.zeros(7, dtype=torch.bool),
+                torch.zeros((100, 3), dtype=torch.int32))
+    out = cc.clique_children(*(t.as_subclass(_OnCard) for t in operands))
+    ((name, args),) = launched
+    assert name == "clique_children" and cc.launches == 1
+    assert out is made[0] and out.shape == (7, 8) and \
+        out.dtype == torch.int32
+    assert args == (*(t.data_ptr() for t in operands), out.data_ptr(), 7, 5,
+                    100, 3, 0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "width", "mask_shape", "device"])
