@@ -1,4 +1,6 @@
-"""The data graphs, as edge lists made from a seed.
+"""The data graphs' frozen functions, as edge lists made from a seed.  A
+configuration reaches them through its generator file in this folder
+(``<generator>.py``, whose ``make(config, seed)`` reads the sizes).
 
 ``densifying_edges`` is a frozen copy of
 ``src/repro_torch/data/synthetic_graphs.py``'s ``densifying_graph`` (the
@@ -14,7 +16,6 @@ takes them.
 """
 from __future__ import annotations
 
-import inspect
 from typing import Dict
 
 import numpy as np
@@ -49,19 +50,3 @@ def densifying_graph(n: int, m: int, seed: int) -> Dict[str, object]:
     """The densification protocol's graph: ``{"n", "edges"}``."""
     return dict(n=n, edges=densifying_edges(n, m, seed))
 
-
-#: the generators a configuration's ``generator`` may name
-GENERATORS = {"densifying_graph": densifying_graph}
-
-#: a configuration's size keys, by the generators' argument names
-SIZE_KEYS = {"num_vertices": "n", "num_edges": "m"}
-
-
-def make_graph(config: dict, seed: int) -> Dict[str, object]:
-    """The data graph of a configuration, from ``seed``: its ``generator``
-    names the function, and its size keys (:data:`SIZE_KEYS`) that the
-    function takes are the arguments."""
-    make = GENERATORS[config["generator"]]
-    args = {arg: config[key] for key, arg in SIZE_KEYS.items()
-            if key in config and arg in inspect.signature(make).parameters}
-    return make(**args, seed=seed)

@@ -2,16 +2,34 @@
 result line.
 
 Everything that belongs to one configuration, traffic mix or metric is
-data or a file of its own, found by the name ``BENCHMARK.json`` gives it:
+data or a file of its own, found by the name ``BENCHMARK.json`` gives it,
+so that a configuration, a cell or a metric arrives as new files and
+manifest entries alone:
 
 - a configuration is ``configs/<name>.json`` (the file the manifest names):
-  the data graph's generator and sizes, the request's fixed fields and
-  the module of ``reference/`` that judges its answers;
+  its generator, the sizes that generator reads, the request's fixed
+  fields, the module of ``reference/`` that judges its answers, and under
+  ``tiny`` the sizes and request fields of the tests' CPU runs (size keys
+  at its top level, request fields under its ``request``), which a run
+  never reads;
+- its generator is ``gen/<generator>.py``, whose ``make(config, seed)``
+  returns the data (:func:`make_data`; ``gen/__init__.py`` says what the
+  data holds);
+- its reference is ``reference/<reference>.py``: ``Reference(n, edges,
+  labels=None)`` over the whole data, whose ``judge(fields, response)``
+  counts the numbers named in its ``LIMITS`` (:func:`judge`);
 - a traffic mix is ``traffic/<name>.json``, read by :func:`make_requests`,
   the one general generator (see its docstring for the keys);
 - a metric is ``metrics/<name>.py``, whose ``read(run)`` takes the
   :class:`Run` record and returns a number, or None where it finds nothing
   to read.
+
+A new configuration then needs its config file with ``tiny``, its generator
+file (or the name of one there), its reference module (or the name of one
+there), a traffic file for each of its cells, and its manifest entries:
+its ``configs`` entry, a ``workloads`` entry a cell, and the cells' names
+in the ``workloads`` list of each per-layer metric that reads a number in
+them.
 
 The window sends the cell's requests to one in-process
 ``repro_torch.service.DiscoveryService`` through ``serve``, from one client
@@ -35,7 +53,6 @@ from typing import List, Optional
 import numpy as np
 
 from nuribench import trace as tr
-from nuribench.gen import graphs
 
 BENCH = Path(__file__).resolve().parent
 #: top-level module names that may not be loaded in a run
@@ -88,19 +105,42 @@ def metrics_of(manifest: dict, cell: str, trace: bool) -> List[dict]:
             if "workloads" not in m or cell in m["workloads"]]
 
 
-def read_metric(name: str, run: "Run") -> Optional[float]:
-    """The value that ``metrics/<name>.py`` reads from ``run``."""
-    path = BENCH / "metrics" / f"{name}.py"
+def _load(path: Path, prefix: str):
+    """The module of the file ``path``, under a name of its own."""
     spec = importlib.util.spec_from_file_location(
-        "nuribench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        prefix + path.stem.replace(".", "_").replace("-", "_"), path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read(run)
+    return module
+
+
+def read_metric(name: str, run: "Run") -> Optional[float]:
+    """The value that ``metrics/<name>.py`` reads from ``run``."""
+    return _load(BENCH / "metrics" / f"{name}.py",
+                 "nuribench_metric_").read(run)
+
+
+#: what a generator's data may hold
+DATA_KEYS = {"n", "edges", "labels", "request"}
+
+
+def make_data(root: Path, config: dict, seed: int) -> dict:
+    """The data of a configuration from ``seed``: what ``make(config,
+    seed)`` of ``nuribench/gen/<generator>.py`` under ``root`` returns."""
+    data = _load(root / "nuribench" / "gen" / f"{config['generator']}.py",
+                 "nuribench_gen_").make(config, seed)
+    unknown = set(data) - DATA_KEYS
+    if unknown or not {"n", "edges"} <= set(data):
+        raise ValueError(f"generator {config['generator']!r} gave the keys "
+                         f"{sorted(data)}; data holds n, edges and maybe "
+                         f"labels and request")
+    return data
 
 
 # ---------------------------------------------------------------- traffic
 def make_requests(config: dict, traffic: dict, trace: bool,
-                  overrides: Optional[dict] = None):
+                  overrides: Optional[dict] = None,
+                  data: Optional[dict] = None):
     """The warm-up request and a generator of the window's, each a dict of
     ``DiscoveryRequest`` fields, from the configuration and the traffic
     mix.
@@ -109,19 +149,22 @@ def make_requests(config: dict, traffic: dict, trace: bool,
 
     - ``loop`` ``"closed"`` and ``clients`` 1: one client sends its next
       request when the last one has answered (the only arrivals so far);
-    - ``request``: fields over the configuration's ``request`` (its
-      engine knobs, such as ``steps_per_sync``);
+    - ``request``: fields over the configuration's ``request`` and the
+      data's (its engine knobs, such as ``steps_per_sync``);
     - ``warmup_step_budget``: the warm-up request's ``step_budget``, or null
       to run it to its end.
 
     Every request has ``use_cache`` false unless the mix sets it, and
-    ``observe`` on in a traced run.  ``overrides`` are fields laid over the
-    window's requests (the control's cut ``step_budget``)."""
+    ``observe`` on in a traced run.  The fields are laid in this order:
+    the configuration's ``request``, the ``request`` of the generator's
+    ``data`` (such as ``weights``), the mix's ``request``, and on the
+    window's requests ``overrides`` (the control's cut ``step_budget``)."""
     if traffic.get("loop", "closed") != "closed" or \
             traffic.get("clients", 1) != 1:
         raise ValueError("the harness drives one client in a closed loop")
     base = dict(config["request"], graph=HANDLE, use_cache=False,
                 observe=bool(trace))
+    base.update((data or {}).get("request", {}))
     base.update(traffic.get("request", {}))
     warm = dict(base, request_id="warmup")
     if traffic.get("warmup_step_budget") is not None:
@@ -275,13 +318,17 @@ def run_cell(root: Path, manifest: dict, name: str, seed: int,
             f"(nvcc {report['seconds']:.3f} s, {time.perf_counter() - t:.3f}"
             f" s with the load) in {build.BUILD_DIR}")
     t = time.perf_counter()
-    graph = graphs.make_graph(config, seed)
-    store = GraphStore.from_edges(graph["n"], graph["edges"])
+    data = make_data(root, config, seed)
+    labels = data.get("labels")
+    # the program gets its own copy: the reference reads the data's
+    store = GraphStore.from_edges(
+        data["n"], data["edges"],
+        labels=None if labels is None else np.array(labels))
     steps_t["graph"] = time.perf_counter() - t
     obs = Observability(max_spans=1 << 21) if trace else None
     service = DiscoveryService(observability=obs, device=device)
     service.register_graph(HANDLE, store)
-    warm, window = make_requests(config, traffic, trace, overrides)
+    warm, window = make_requests(config, traffic, trace, overrides, data)
 
     def serve(fields: dict) -> dict:
         req = DiscoveryRequest.from_dict(fields)
@@ -380,7 +427,7 @@ def run_cell(root: Path, manifest: dict, name: str, seed: int,
     if device == "cuda":
         torch.cuda.empty_cache()
 
-    checks = judge(config, graph, sent, log)
+    checks = judge(config, data, sent, log)
     result = dict(correct=all(c["value"] <= c["limit"]
                               for c in checks.values()),
                   attempted=len(sent),
@@ -418,15 +465,18 @@ def _log_parts(run: Run, log) -> None:
 
 
 # ------------------------------------------------------------------ check
-def judge(config: dict, graph: dict, sent: List[Sent], log) -> dict:
+def judge(config: dict, data: dict, sent: List[Sent], log) -> dict:
     """The numbers compared, each with its limit: requests never answered,
     answers not ``ok`` and complete, and what the configuration's
     reference module counts in the answers (``reference/<name>.py``:
-    ``Reference(n, edges).judge(fields, response)`` and its ``LIMITS``)."""
+    ``Reference(n, edges, labels=None)`` of the generator's ``data``, its
+    ``judge(fields, response)`` and its ``LIMITS``).  The data's request
+    fields reach the reference in each request's ``fields``."""
     t = time.perf_counter()
     module = importlib.import_module(
         f"nuribench.reference.{config['reference']}")
-    ref = module.Reference(graph["n"], graph["edges"])
+    ref = module.Reference(data["n"], data["edges"],
+                           labels=data.get("labels"))
     counts = dict(unanswered=sum(s.response is None for s in sent),
                   incomplete=sum(s.response is not None and not s.ok
                                  for s in sent))

@@ -30,7 +30,7 @@ level down, and counts the cliques whose bound reaches the k-th key.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -144,9 +144,11 @@ LIMITS = {"wrong_keys": 0, "wrong_results": 0, "unexpanded": 0}
 
 
 class Reference:
-    """Judges ``clique`` responses on one data graph."""
+    """Judges ``clique`` responses on one data graph.  ``labels`` are taken
+    and not read: a clique is the same whatever its vertices' labels."""
 
-    def __init__(self, n: int, edges: np.ndarray):
+    def __init__(self, n: int, edges: np.ndarray,
+                 labels: Optional[np.ndarray] = None):
         self.cliques = Cliques(Graph(n, edges))
         self._top: Dict[int, List[List[int]]] = {}
 

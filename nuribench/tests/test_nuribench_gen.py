@@ -1,12 +1,16 @@
 """The benchmark's frozen generator: determinism, the stated sizes, and
 byte equality with the program's generator it was copied from."""
+from pathlib import Path
+
 import numpy as np
 import pytest
 
+from nuribench import harness
 from nuribench.gen import graphs
 from repro_torch.core.graph import GraphStore
 from repro_torch.data import synthetic_graphs
 
+ROOT = Path(__file__).resolve().parents[2]
 SEEDS = [0, 7, 2 ** 31 + 11]
 
 
@@ -44,8 +48,20 @@ def test_too_many_edges_are_refused():
 
 
 def test_make_graph_reads_a_configurations_sizes():
+    """A configuration's generator file reads its own size keys."""
     config = dict(generator="densifying_graph", num_vertices=300,
                   num_edges=900, other_key=4)
-    g = graphs.make_graph(config, 3)
+    g = harness.make_data(ROOT, config, 3)
     want = graphs.densifying_graph(300, 900, 3)
     assert g["n"] == 300 and np.array_equal(g["edges"], want["edges"])
+    assert set(g) == {"n", "edges"}
+
+
+def test_make_data_refuses_what_data_does_not_hold(tmp_path):
+    gen = tmp_path / "nuribench" / "gen"
+    gen.mkdir(parents=True)
+    (gen / "odd.py").write_text(
+        "def make(config, seed):\n"
+        "    return dict(n=2, edges=[[0, 1]], weights=[1, 1])\n")
+    with pytest.raises(ValueError, match="weights"):
+        harness.make_data(tmp_path, dict(generator="odd"), 0)

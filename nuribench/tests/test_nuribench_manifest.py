@@ -98,6 +98,30 @@ def test_every_named_file_exists():
         assert (BENCH / "metrics" / f"{m['name']}.py").is_file(), m["name"]
 
 
+def _defines(path: Path, name: str) -> bool:
+    """Does the file define the function ``name`` at its top level?"""
+    tree = ast.parse(path.read_text(), str(path))
+    return any(isinstance(n, ast.FunctionDef) and n.name == name
+               for n in tree.body)
+
+
+@pytest.mark.parametrize("conf", MANIFEST["configs"],
+                         ids=lambda c: c["name"])
+def test_every_configuration_has_tiny_and_a_generator(conf):
+    """The tests' CPU size is the configuration's own (``tiny``: size keys
+    of the configuration, request fields under ``request``), and its
+    generator is a file of ``gen/`` with ``make(config, seed)``."""
+    config = json.loads((ROOT / conf["file"]).read_text())
+    tiny = config["tiny"]
+    assert isinstance(tiny, dict) and tiny
+    sizes = {k: v for k, v in tiny.items() if k != "request"}
+    assert set(sizes) <= set(config) and all(
+        isinstance(v, int) and v > 0 for v in sizes.values())
+    assert isinstance(tiny.get("request", {}), dict)
+    gen = BENCH / "gen" / f"{config['generator']}.py"
+    assert gen.is_file() and _defines(gen, "make"), gen
+
+
 def _imports(path: Path):
     """Top-level names of the modules a file imports (absolute imports,
     and ``importlib``/``__import__`` calls with a literal name)."""

@@ -4,6 +4,7 @@ print is the CPU's).  A sound run comes out correct; the control (the
 program's own ``step_budget`` cut) and each fault the cells can have,
 planted underneath the timed path, come out not correct."""
 import dataclasses
+import importlib
 import json
 import shutil
 import subprocess
@@ -20,29 +21,39 @@ from repro_torch.core import vpq as vpq_mod
 from repro_torch.core.engine import Engine
 
 ROOT = Path(__file__).resolve().parents[2]
-#: tiny sizes of each configuration (about 270 triangles), with a pool of
-#: 64 and a batch of 8, so that the cells spill and refill as at full size
-TINY = {"clique-densify": dict(num_vertices=256, num_edges=1500)}
+MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
 SEED = 2 ** 31 + 7
-CELLS = ["clique-densify.t1", "clique-densify.t16"]
+#: every cell of the manifest
+CELLS = [w["name"] for w in MANIFEST["workloads"]]
+#: the two cells that spill and refill at their tiny sizes (about 270
+#: triangles, a pool of 64, a batch of 8), where the stuck step and the
+#: dropped spill queue are planted; the other faults go into every cell
+FAULT_CELLS = ["clique-densify.t1", "clique-densify.t16"]
+
+
+def cut_to_tiny(root: Path, manifest: dict) -> None:
+    """Lay each configuration's ``tiny`` over its file in the checkout
+    ``root``: its size keys over the file's, its ``request`` over the
+    file's ``request``."""
+    for c in manifest["configs"]:
+        path = root / c["file"]
+        config = json.loads(path.read_text())
+        tiny = dict(config["tiny"])
+        config["request"] = dict(config["request"], **tiny.pop("request", {}))
+        config.update(tiny)
+        path.write_text(json.dumps(config))
 
 
 @pytest.fixture(scope="module")
 def tiny(tmp_path_factory):
-    """A checkout whose configurations are cut to TINY: its root and its
-    manifest."""
+    """A copy of the checkout (``BENCHMARK.json`` and ``nuribench/``) whose
+    configurations are cut to their ``tiny``: its root and its manifest."""
     root = tmp_path_factory.mktemp("checkout")
-    manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
-    (root / "nuribench" / "configs").mkdir(parents=True)
-    shutil.copytree(ROOT / "nuribench" / "traffic",
-                    root / "nuribench" / "traffic")
-    for c in manifest["configs"]:
-        config = json.loads((ROOT / c["file"]).read_text())
-        config.update(TINY[c["name"]])
-        config["request"] = dict(config["request"], batch=8,
-                                 pool_capacity=64)
-        (root / c["file"]).write_text(json.dumps(config))
-    (root / "BENCHMARK.json").write_text(json.dumps(manifest))
+    shutil.copytree(ROOT / "nuribench", root / "nuribench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    manifest = json.loads((root / "BENCHMARK.json").read_text())
+    cut_to_tiny(root, manifest)
     return root, manifest
 
 
@@ -74,9 +85,65 @@ def test_a_sound_run_is_correct(tiny, cell, trace):
     assert r["device"]["platform"] == "cpu" and "breakdown" not in r
 
 
+#: each configuration of the manifest with its first cell
+FIRST_CELLS = {w["config"]: w["name"]
+               for w in reversed(MANIFEST["workloads"])}
+
+
+@pytest.mark.parametrize("config", sorted(FIRST_CELLS))
+def test_the_data_reaches_the_service_and_the_reference(tiny, monkeypatch,
+                                                        config):
+    """Every part of the generator's data is passed on: the registered
+    graph holds its labels (none where it has none), every request holds
+    its request fields, and the reference is built from its edges and
+    labels."""
+    from repro_torch.service import DiscoveryService
+    root, manifest = tiny
+    cell = FIRST_CELLS[config]
+    conf = json.loads((root / {c["name"]: c["file"] for c in
+                               manifest["configs"]}[config]).read_text())
+    module = importlib.import_module(f"nuribench.reference."
+                                     f"{conf['reference']}")
+    seen = {}
+    register, judge = DiscoveryService.register_graph, harness.judge
+
+    def spy_register(self, name, store):
+        seen["store"] = store
+        return register(self, name, store)
+
+    def spy_judge(config, data, sent, log):
+        seen["data"], seen["sent"] = data, sent
+        return judge(config, data, sent, log)
+
+    class SpyReference(module.Reference):
+        def __init__(self, n, edges, labels=None):
+            seen["ref"] = (n, edges, labels)
+            super().__init__(n, edges, labels=labels)
+
+    monkeypatch.setattr(DiscoveryService, "register_graph", spy_register)
+    monkeypatch.setattr(harness, "judge", spy_judge)
+    monkeypatch.setattr(module, "Reference", SpyReference)
+    r = run(tiny, cell)
+    assert r["correct"] and r["attempted"] >= 1
+    data = seen["data"]
+    labels = data.get("labels")
+    if labels is None:
+        assert seen["store"].labels is None
+    else:
+        assert np.array_equal(seen["store"].labels, labels)
+    assert seen["store"].n == data["n"]
+    n, edges, ref_labels = seen["ref"]
+    assert n == data["n"] and edges is data["edges"]
+    assert ref_labels is labels
+    assert seen["sent"] and all(
+        s.fields[k] == v for s in seen["sent"]
+        for k, v in data.get("request", {}).items())
+
+
 def test_the_same_seed_sends_the_same_requests(tiny):
     root, manifest = tiny
-    cell, config, traffic = harness.find_cell(manifest, CELLS[1], root)
+    cell, config, traffic = harness.find_cell(manifest, "clique-densify.t16",
+                                              root)
     one = harness.make_requests(config, traffic, False)
     two = harness.make_requests(config, traffic, False)
     assert one[0] == two[0] and one[0]["step_budget"] == 32
@@ -108,7 +175,7 @@ def test_a_step_that_leaves_the_state_unchanged(tiny, monkeypatch):
         return step(self, st, max_inner) if len(calls) <= 2 else st
 
     monkeypatch.setattr(Engine, "step", stuck)
-    r = run(tiny, CELLS[0], grace=1.0)
+    r = run(tiny, FAULT_CELLS[0], grace=1.0)
     assert not r["correct"] and failing(r) == ["unanswered"]
 
 
@@ -141,7 +208,7 @@ def test_half_of_each_batch_left_unexpanded(tiny, monkeypatch, cell, lower):
     assert not r["correct"] and "wrong_results" in failing(r)
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", FAULT_CELLS)
 def test_every_spilled_entry_dropped(tiny, monkeypatch, cell):
     """The spill queue keeps nothing: no entry comes back by refill."""
     monkeypatch.setattr(vpq_mod.VirtualPriorityQueue, "maybe_push",
