@@ -61,7 +61,10 @@ each (plus detail):
    where the planned kernel is slower than the plain version there.
    Then the cut-over sweep: the three kernels exact and timed at 1,024 x
    N x 1,024, masked, N = 1 to 64 (32 and 33 among them), beside the
-   plan's cut-over;
+   plan's cut-over.  ``clique_children`` and the maximum-weight clique's
+   two kernels (its weighted child rows and its scoring over 8 weight bit
+   planes) bit for bit against their plain versions, timed beside their
+   bytes bounds;
 3. the quickstart config, the spill probe (at ``steps_per_sync`` 1 and
    16) and a small iso run through the masked kernel (the reference's
    ``tests/test_kernels.py`` case, at ``steps_per_sync`` 1 and 16) on
@@ -77,6 +80,10 @@ each (plus detail):
 4. the main path: ``planted_clique_graph(32768, 354000, 32, seed=0)`` with
    ``EngineConfig(k=3, batch=64, pool_capacity=16384)`` must find the
    planted 32-clique, and every kernel of the path must have launched;
+   then the maximum-weight clique's path at the benchmark cell's width
+   (``phase_weighted_main_path``): each weighted kernel launched once a
+   pass launched, T 16 equal to T 1 under a step budget, a spill through the
+   queue's page-locked rows, every result a clique of its key's weight;
 5. the main path once more under ``torch.profiler``: the device's idle
    share of the wall time and the kernels that take the device time;
 6. the co-workload path: four batches each of a GraphSAGE 2-hop sample
@@ -215,6 +222,9 @@ each (plus detail):
 Each profiled rerun prints the seconds the profiler takes after the run
 (its stop and the read of the device intervals from its events).
 
+``python3 chip_smoke.py --weighted`` runs phase 1 and the maximum-weight
+clique's kernels and path alone, and prints their ``kernels`` entries.
+
 ``python3 chip_smoke.py --sharded-run '<json>'`` runs phase 4's cell
 through ``ShardedEngine`` at the given fields alone and prints one JSON
 line (wall, counters, launches, no-op inner steps, spans, peak memory).
@@ -268,6 +278,13 @@ COUNTERS = ("steps", "candidates", "expanded", "pruned", "spilled",
             "refilled", "late_pruned", "syncs", "host_syncs")
 # super-steps a host read in the macro-step runs (phases 3, 8, 9)
 MACRO_T = 16
+# the maximum-weight clique on the engine at the benchmark cell
+# wclique-densify.t16's width: its graph's sizes, DIMACS-W weights
+# ((i mod 200) + 1), its request (k 16, batch 64, pool 16,384, host spill),
+# cut by a step budget; at T 1 and at the cell's T 16
+WEIGHTED_FULL_GRAPH = dict(n=46_336, m=1_000_000, seed=2718281801)
+WEIGHTED_FULL_ENGINE = dict(k=16, batch=64, pool_capacity=16_384,
+                            spill="host", max_steps=256)
 # tests/test_kernels.py::_iso_run's case, with the reference package's
 # answer and counters (CPU JAX)
 ISO_SMALL_GRAPH = dict(n=90, m=300, n_labels=3, seed=4)
@@ -1064,6 +1081,193 @@ def check_clique_children(env: dict) -> dict:
               + (f" plain_ms={plain_ms:.3f} call_ms={record['call_ms']:.4f}"
                  if pattern == "prefix" else "") + f" ({env['smi']})")
     return record
+
+
+def check_weighted_kernels(env: dict) -> dict:
+    """The maximum-weight clique's two kernels against their plain
+    versions, bit for bit: the weighted child rows (``clique_children``'s
+    weighted form) at the ragged shapes and the benchmark's (B 64, M = N =
+    46,336) with every pattern of valid rows, and the weighted scoring (one
+    1-bit ``masked_intersect`` call over 8 weight planes x 64 rows) at the
+    benchmark's shape, with DIMACS-W weights ((i mod 200) + 1) and random
+    ones below 256; then each timed at the benchmark's shape beside its
+    bytes bound (``nuribench/wroofline.py``'s formulas), and the scoring's
+    1-bit kernel alone beside it.  Returns ``{"wchildren": record,
+    "wscoring": record}``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitset
+    from repro_torch.kernels import clique_children as cc
+    from repro_torch.kernels import masked_intersect as mi
+    from repro_torch.kernels import weighted_intersect as wi
+
+    rng = np.random.default_rng(33)
+
+    def weights_of(n, dimacs):
+        w = (np.arange(n) % 200 + 1) if dimacs else rng.integers(1, 256, n)
+        return torch.from_numpy(w.astype(np.int32)).cuda()
+    for shape in CHILDREN_RAGGED + (CHILDREN_MAIN,):
+        for pattern in ("prefix", "all", "none", "random"):
+            states, parent, action, valid, ext = children_inputs(
+                rng, *shape, pattern)
+            wts = weights_of(shape[2], pattern != "random")
+            args = (states, parent, action, valid, ext, wts)
+            want = cc.weighted_clique_children_plain(*args)
+            got = cc.weighted_clique_children(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                rows = (got != want).any(dim=1).nonzero()[:5, 0].tolist()
+                fail(f"weighted clique_children (B, M, N, W)={shape} "
+                     f"valid={pattern}: differs from its plain version "
+                     f"(rows {rows} ...)")
+            del want, got
+    print(f"[2 kernel] weighted clique_children: exact at "
+          f"{CHILDREN_RAGGED + (CHILDREN_MAIN,)}, valid prefix/all/none/"
+          f"random")
+    b, m, n, w = CHILDREN_MAIN
+    for dimacs in (False, True):       # the timings below take the last
+        wts = weights_of(n, dimacs)
+        planes = wi.weight_planes(wts.cpu().numpy(), "cuda")
+        p_bits = bitset.to_tensor(bitset.from_bool(
+            rng.random((b, n)) < 0.02), "cuda")
+        ext = bitset.to_tensor(bitset.from_bool(
+            rng.random((n, n)) < 0.001), "cuda")
+        got = wi.weighted_intersect(p_bits, ext, planes)
+        want = wi.weighted_intersect_plain(p_bits, ext, wts)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"weighted_intersect (B, N)={(b, n)} dimacs={dimacs}: "
+                 f"differs from its plain version")
+        k = int(planes.shape[0])
+        print(f"[2 kernel] weighted_intersect (B, N, K)={(b, n, k)} "
+              f"dimacs={dimacs}: exact (max {int(got.max())})")
+    # timed at the benchmark's shape: DIMACS-W weights (8 planes)
+    rows = (planes[:, None, :] & p_bits[None]).reshape(-1, w).contiguous()
+    score_ms = queued_ms(lambda: wi.weighted_intersect(p_bits, ext, planes))
+    kernel_ms = queued_ms(lambda: mi.masked_intersect(rows, ext))
+    b64_ms = queued_ms(lambda: mi.masked_intersect(p_bits, ext))
+    score_bound = 1e3 * (4 * (b * w + n * w + b * n) + 4 * n) / \
+        HBM_BYTES_PER_S
+    wscoring = dict(ms=score_ms, kernel_ms=kernel_ms, b64_kernel_ms=b64_ms,
+                    bound_ms=score_bound, bound_by="bytes",
+                    planes=int(planes.shape[0]), max_abs_err=0)
+    print(f"[2 kernel] weighted_intersect (B, N, K)={(b, n, k)}: ms="
+          f"{score_ms:.4f} (the 1-bit kernel over {rows.shape[0]} rows "
+          f"{kernel_ms:.4f}; over the 64 rows alone {b64_ms:.4f}) bound_ms="
+          f"{score_bound:.4f} (bytes, {100 * score_bound / kernel_ms:.1f}% "
+          f"of the kernel) ({env['smi']})")
+    wchildren = dict(max_abs_err=0)
+    for pattern in ("prefix", "all"):
+        states, parent, action, valid, ext = children_inputs(
+            rng, *CHILDREN_MAIN, pattern)
+        args = (states, parent, action, valid, ext, weights_of(n, True))
+        ms = queued_ms(lambda: cc.weighted_clique_children(*args))
+        bound = children_bound_ms(*args[:5])
+        key = "" if pattern == "prefix" else "all_valid_"
+        wchildren.update({f"{key}ms": ms, f"{key}bound_ms": bound})
+        if pattern == "prefix":
+            wchildren.update(
+                bound_by="bytes", plain_ms=cuda_ms(
+                    lambda: cc.weighted_clique_children_plain(*args), 3, 1),
+                unweighted_ms=queued_ms(
+                    lambda: cc.clique_children(*args[:5])))
+        print(f"[2 kernel] weighted clique_children {CHILDREN_MAIN} valid="
+              f"{pattern}: ms={ms:.4f} bound_ms={bound:.4f} (bytes, "
+              f"{100 * bound / ms:.1f}%)" + (
+                  f" plain_ms={wchildren['plain_ms']:.3f} unweighted_ms="
+                  f"{wchildren['unweighted_ms']:.4f}"
+                  if pattern == "prefix" else "") + f" ({env['smi']})")
+    return dict(wchildren=wchildren, wscoring=wscoring)
+
+
+def weighted_kernel_entries(weighted: dict, launches: dict) -> list:
+    """The ``kernels`` line's entries of the weighted clique's kernels:
+    ``check_weighted_kernels``' record, with the main path's launches."""
+    return [dict(name="weighted_clique_children", route="cuda",
+                 source="src/repro_torch/kernels/csrc/clique_children.cu",
+                 replaces=None, library_ms=None, **weighted["wchildren"],
+                 launches=launches["weighted_clique_children"]),
+            dict(name="weighted_intersect", route="cuda",
+                 source="src/repro_torch/kernels/csrc/masked_intersect.cu",
+                 replaces=None, library_ms=None, **weighted["wscoring"],
+                 launches=launches["weighted_intersect"])]
+
+
+def phase_weighted_main_path() -> dict:
+    """The maximum-weight clique's main path: the fused computation through
+    ``Engine`` at the benchmark cell's width (``WEIGHTED_FULL_*``), the
+    launch counters reset just before each run.  At T 1 each of the two
+    weighted kernels must launch once a step; at T 16 once a pass launched
+    (``min(T, steps left)`` a host read; the steps are the live passes),
+    with T 1's answer and counters but ``host_syncs``.  The runs must spill, through the spill
+    queue's page-locked rows (one set left idle in the process after
+    them), and every result must be a clique whose weight is its key.
+    Returns the T 1 run's launches of each kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.core import vpq
+    from repro_torch.core.engine import Engine, EngineConfig
+    from repro_torch.core.weighted_clique import \
+        make_weighted_clique_computation
+    from repro_torch.data.synthetic_graphs import densifying_graph
+    from repro_torch.kernels import clique_children as cc
+    from repro_torch.kernels import weighted_intersect as wi
+
+    g = densifying_graph(**WEIGHTED_FULL_GRAPH)
+    weights = np.arange(g.n) % 200 + 1
+    comp = make_weighted_clique_computation(g, weights, device="cuda")
+    budget = WEIGHTED_FULL_ENGINE["max_steps"]
+    runs = {}
+    for t in (1, MACRO_T):
+        eng = Engine(comp, EngineConfig(**WEIGHTED_FULL_ENGINE,
+                                        steps_per_sync=t))
+        passes, step = [0], eng.step
+
+        def counted(st, max_inner=None, t=t, step=step):
+            passes[0] += min(t, max_inner or t)    # the passes it launches
+            return step(st, max_inner)
+        eng.step = counted
+        torch.cuda.synchronize()
+        cc.reset_launches()
+        wi.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(weighted_clique_children=cc.weighted_launches,
+                        weighted_intersect=wi.launches,
+                        clique_children=cc.launches)
+        runs[t] = res, launches
+        print(f"[4w weighted] N={g.n} T={t} steps={res.steps} "
+              f"host_syncs={res.host_syncs} spilled={res.spilled} "
+              f"refilled={res.refilled} late_pruned={res.late_pruned} "
+              f"keys={[int(x) for x in res.result_keys[:4]]}... "
+              f"wall={wall_s:.3f}s ms_per_step={1e3 * wall_s / res.steps:.3f}"
+              f" launches={launches}")
+        passes = passes[0]
+        if res.steps != budget:
+            fail(f"weighted T={t}: {res.steps} steps, the budget {budget}")
+        if launches != dict(weighted_clique_children=passes,
+                            weighted_intersect=passes, clique_children=0):
+            fail(f"weighted T={t}: launches {launches} in {passes} passes "
+                 f"({res.steps} steps)")
+        if not res.spilled or len(vpq._IDLE) != 1:
+            fail(f"weighted T={t}: spilled {res.spilled}, {len(vpq._IDLE)} "
+                 f"idle sets of page-locked rows (one expected)")
+    same_run(f"weighted T={MACRO_T} against T=1", runs[MACRO_T][0], runs[1][0],
+             counters=[c for c in COUNTERS if c != "host_syncs"])
+    res = runs[1][0]
+    adj = np.asarray(g.adj_bits, np.uint32)
+    for key, row in zip(res.result_keys, res.result_states):
+        members = comp.describe(row)
+        if int(weights[members].sum()) != int(key) or any(
+                not adj[u, v >> 5] >> (v & 31) & 1
+                for i, u in enumerate(members) for v in members[i + 1:]):
+            fail(f"weighted result {members} (key {int(key)}) is not a "
+                 f"clique of that weight")
+    print(f"[4w weighted] {len(res.result_keys)} results, each a clique of "
+          f"its key's weight; T={MACRO_T} equal to T=1")
+    return runs[1][1]
 
 
 def same_run(what: str, a, b, counters=COUNTERS) -> None:
@@ -3350,11 +3554,18 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--sharded-run":
         return sharded_child(json.loads(sys.argv[2]))
     env = phase_environment()
+    if len(sys.argv) == 2 and sys.argv[1] == "--weighted":
+        weighted = check_weighted_kernels(env)
+        print(json.dumps({"kernels": weighted_kernel_entries(
+            weighted, phase_weighted_main_path())}))
+        return 0
     kernel = phase_kernels(env)
     children = check_clique_children(env)
+    weighted = check_weighted_kernels(env)
     ragged = phase_coworkload_kernels()
     phase_quickstart_parity()
     launches, children_launches, comp, res, wall4_s = phase_main_path()
+    weighted_launches = phase_weighted_main_path()
     idle_t1 = phase_profile(comp, res)
     cowork = phase_coworkload(planted_clique_graph(**FULL_GRAPH), ragged)
     phase_merge_topk()
@@ -3403,6 +3614,7 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/clique_children.cu",
         replaces=None, launches=children_launches, library_ms=None,
         **children))
+    kernels += weighted_kernel_entries(weighted, weighted_launches)
     for name, line in (("segment_matmul", 59), ("embedding_bag", 46),
                        ("flash_attention", 84)):
         # the fp32 record first; a bf16 one beside it where both run

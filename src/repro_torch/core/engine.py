@@ -518,6 +518,13 @@ class Engine:
         return (cat_states[keep], cat_prio[keep], cat_ub[keep],
                 cat_states[over], cat_prio[over], cat_ub[over])
 
+    def _pinned_rows(self):
+        """The spill queue's staging on a card: a super-step's overflow
+        block (B + M rows; a macro-step's larger blocks take pageable
+        memory) and a refill (at most C rows)."""
+        return (self.B + self.M, self.C) if self.device.type == "cuda" \
+            else None
+
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
@@ -531,7 +538,7 @@ class Engine:
         cfg, S, C, k, dev = self.cfg, self.S, self.C, self.k, self.device
         vpq = VirtualPriorityQueue(
             state_width=S, backend=cfg.spill, spill_dir=cfg.spill_dir,
-            obs=self.obs)
+            obs=self.obs, pinned_rows=self._pinned_rows())
 
         with self._span("engine.start.frontier"):
             states0, prio0, ub0 = self.comp.init_frontier()
@@ -602,8 +609,7 @@ class Engine:
             n_over = stats["overflow"]
             if n_over:   # the valid rows lead the block; ship only those
                 with self._span("engine.spill"):
-                    st.vpq.maybe_push(*(x[:n_over].cpu().numpy()
-                                        for x in overflow))
+                    st.vpq.push_from_device(*(x[:n_over] for x in overflow))
             self._refill(st, stats["pool_occupancy"])
         self._after_step(st, 1, stats, t0)
         return st
@@ -631,8 +637,7 @@ class Engine:
             w = stats["spill_count"]
             if w:    # ship only the accumulator's valid prefix; none when dry
                 with self._span("engine.spill"):
-                    st.vpq.maybe_push(*(x[:w].cpu().numpy()
-                                        for x in self._acc))
+                    st.vpq.push_from_device(*(x[:w] for x in self._acc))
             self._refill(st, stats["pool_occupancy"])
         self._after_step(st, stats["steps"], stats, t0)
         return st
@@ -660,21 +665,20 @@ class Engine:
             # refill from spill runs; entries dominated by the current
             # threshold are dropped at the VPQ (paper-style late pruning)
             with self._span("engine.refill"):
-                r_states, r_prio, r_ub = st.vpq.pop_chunk(
-                    C - occ, min_ub=st.threshold)
-                if len(r_prio):
-                    refilled_now = len(r_prio)
+                chunk = st.vpq.pop_chunk(C - occ, min_ub=st.threshold)
+                if len(chunk[1]):
+                    refilled_now = len(chunk[1])
                     st.refilled += refilled_now
                     self._m_refilled.inc(refilled_now)
+                    # occ + refilled <= C live entries: all stay in the
+                    # pool, and the insert's overflow rows are all empty
                     with self._pass("pass.refill"):
+                        up_states, up_prio, up_ub = st.vpq.upload(
+                            chunk, self.device)
                         (st.pool_states, st.pool_prio, st.pool_ub,
-                         os_, op_, ou_) = self._insert_impl(
-                            (st.pool_states, self._to_device(r_states)),
-                            (st.pool_prio, self._to_device(r_prio)),
-                            (st.pool_ub, self._to_device(r_ub)))
-                        over = (os_.cpu().numpy(), op_.cpu().numpy(),
-                                ou_.cpu().numpy())
-                    st.vpq.maybe_push(*over)
+                         *_) = self._insert_impl(
+                            (st.pool_states, up_states),
+                            (st.pool_prio, up_prio), (st.pool_ub, up_ub))
         # refilled entries are live in the pool (their priorities are > NEG),
         # so a refill that drained the VPQ must not read as completion
         st.pool_occupancy = occ + refilled_now
@@ -739,7 +743,8 @@ class Engine:
         tree = mgr.restore(like, step=step)
         vpq = VirtualPriorityQueue.restore(
             extra["vpq"], os.path.join(mgr.path(step), "vpq"),
-            spill_dir=self.cfg.spill_dir, obs=self.obs)
+            spill_dir=self.cfg.spill_dir, obs=self.obs,
+            pinned_rows=self._pinned_rows())
         return EngineState(
             vpq=vpq, **{name: self._to_device(a) for name, a in tree.items()},
             **extra["scalars"])

@@ -16,9 +16,9 @@ spilled here as **sorted runs** — exactly the paper's design:
   (external-merge-sort style, "a small number of disk seeks"):
   each run keeps an in-memory block buffer; a blockwise merge over the
   buffers yields the globally highest entries.  The merge is vectorized
-  (DESIGN.md §13): instead of one heap pop per entry, every live run's
-  buffered block is pulled at once, concatenated, and stably argsorted by
-  descending priority; the *safe prefix* — entries no unbuffered tail can
+  (DESIGN.md §13): instead of one heap pop per entry, the priorities of
+  every live run's buffered block are pulled at once, concatenated, and
+  stably argsorted by descending priority; the *safe prefix* — entries no unbuffered tail can
   outrank — is consumed in bulk and per-run cursors advance by block.  The
   emitted order is byte-identical to the entry-at-a-time heap merge
   (priority descending, ties by run index then within-run position).
@@ -34,16 +34,28 @@ the merge instead of being shipped back to the device; drops are counted in
 :attr:`VirtualPriorityQueue.total_late_pruned` so pruning effectiveness
 (a paper metric) is auditable end to end (``EngineResult.late_pruned``,
 service response ``stats``).
+
+On a card, a queue given ``pinned_rows`` stages its device traffic through
+page-locked host rows (:class:`PinnedRows`): :meth:`~VirtualPriorityQueue.
+push_from_device` copies an overflow block into them after the pending
+blocks, where it stays until its run is written, and :meth:`~
+VirtualPriorityQueue.pop_chunk` writes a refill into them for
+:meth:`~VirtualPriorityQueue.upload`.  A queue borrows its rows at first use
+and gives them back at :meth:`~VirtualPriorityQueue.close`; the process
+keeps at most one set that no queue holds, so the page-locked memory is one
+set a spilling query at once, plus one.
 """
 from __future__ import annotations
 
 import os
 import shutil
 import tempfile
+import threading
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.obs import NOOP
 
@@ -96,12 +108,15 @@ class _Run:
     def _fill_buffer(self):
         s, e = self.cursor, min(self.cursor + self.buffer_size, self.n)
         self._buf_start = s
-        # one sequential block read per refill (the paper's buffering)
+        # one sequential block read per refill (the paper's buffering); a
+        # host run is in memory already and never written, so its block is
+        # a view
         time_it = self._paths is not None and self._obs.enabled
         t0 = time.perf_counter() if time_it else 0.0
-        self._bstates = np.array(self._states[s:e])
-        self._bprio = np.array(self._prio[s:e])
-        self._bub = np.array(self._ub[s:e])
+        read = np.asarray if self._paths is None else np.array
+        self._bstates = read(self._states[s:e])
+        self._bprio = read(self._prio[s:e])
+        self._bub = read(self._ub[s:e])
         if time_it:
             self._obs.counter("vpq_disk_read_seconds_total").inc(
                 time.perf_counter() - t0)
@@ -183,12 +198,48 @@ class _Run:
         return run
 
 
+def _pinned_empty(shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.int32, pin_memory=True)
+
+
+class PinnedRows:
+    """Page-locked host rows of one queue: ``spill``, ``[rows, S]`` states
+    and ``[rows]`` priorities and bounds that overflow blocks are copied
+    into from the card, and ``refill``, ``[refill_rows]`` of each that a
+    refill is popped into and uploaded from."""
+
+    def __init__(self, rows: int, refill_rows: int, state_width: int):
+        self.shape = (rows, refill_rows, state_width)
+        self.spill, self.refill = (
+            tuple(_pinned_empty(s) for s in ((r, state_width), (r,), (r,)))
+            for r in (rows, refill_rows))
+
+
+_IDLE: List[PinnedRows] = []      # at most one: the last given back
+_IDLE_LOCK = threading.Lock()
+
+
+def _borrow(shape: tuple) -> PinnedRows:
+    with _IDLE_LOCK:
+        if _IDLE and _IDLE[0].shape == shape:
+            return _IDLE.pop()
+    return PinnedRows(*shape)
+
+
+def _give_back(rows: PinnedRows) -> None:
+    with _IDLE_LOCK:
+        _IDLE[:] = [rows]
+
+
 class VirtualPriorityQueue:
     def __init__(self, state_width: int, backend: str = "host",
                  spill_dir: Optional[str] = None,
                  buffer_size: int = 8192,
                  run_flush_size: int = 1 << 15,
-                 obs=None):
+                 obs=None, pinned_rows: Optional[Tuple[int, int]] = None):
+        """``pinned_rows``: on a card, the most rows that one
+        :meth:`push_from_device` and one :meth:`pop_chunk` carry; the queue
+        then stages them through page-locked rows (:class:`PinnedRows`)."""
         assert backend in ("host", "disk", "none")
         self.state_width = state_width
         self.backend = backend
@@ -204,6 +255,9 @@ class VirtualPriorityQueue:
             "vpq_refill_bytes_total", "bytes returned by pop_chunk")
         self._m_late_pruned = self.obs.counter(
             "vpq_late_pruned_total", "dominated entries dropped on refill")
+        self.pinned_rows = pinned_rows
+        self._pinned: Optional[PinnedRows] = None   # borrowed at first use
+        self._popped_pinned = 0     # rows the last pop wrote into them
         self.runs: List[_Run] = []
         self._pending: List[tuple] = []   # (states, prio, ub) awaiting a run
         self._pending_n = 0
@@ -219,10 +273,23 @@ class VirtualPriorityQueue:
     def __len__(self) -> int:
         return self._pending_n + sum(r.n - r.cursor for r in self.runs)
 
+    def _staging(self) -> Optional[PinnedRows]:
+        if self.pinned_rows is None or self.backend == "none":
+            return None
+        if self._pinned is None:
+            block, refill = self.pinned_rows
+            self._pinned = _borrow((self.run_flush_size + block, refill,
+                                    self.state_width))
+        return self._pinned
+
     # ------------------------------------------------------------------ push
     def maybe_push(self, states: np.ndarray, prio: np.ndarray,
                    ub: np.ndarray):
-        """Spill the valid (prio > NEG) entries of an overflow block."""
+        """Spill the valid (prio > NEG) entries of an overflow block.
+
+        A block whose every entry is valid is kept as it is, not copied,
+        until its run is written: the caller hands it over and does not
+        write into it again."""
         mask = prio > NEG
         if not mask.any():
             return
@@ -230,7 +297,8 @@ class VirtualPriorityQueue:
             raise RuntimeError(
                 "priority pool overflow with spill disabled; raise "
                 "pool_capacity or enable the virtual priority queue")
-        states, prio, ub = states[mask], prio[mask], ub[mask]
+        if not mask.all():
+            states, prio, ub = states[mask], prio[mask], ub[mask]
         self.total_spilled += len(prio)
         self._m_spilled.inc(len(prio))
         self._m_spill_bytes.inc(states.nbytes + prio.nbytes + ub.nbytes)
@@ -239,15 +307,43 @@ class VirtualPriorityQueue:
         if self._pending_n >= self.run_flush_size:
             self._flush_pending()
 
+    def push_from_device(self, states: torch.Tensor, prio: torch.Tensor,
+                         ub: torch.Tensor):
+        """:meth:`maybe_push` of a block of tensors: with ``pinned_rows``,
+        copied into the page-locked rows right after the pending entries
+        (fewer than ``run_flush_size`` between pushes, so a block of the
+        size given fits), where an all-valid block stays until its run is
+        written, so the rows from the pending count on are always free;
+        else, or where the block is larger, copied to host memory of its
+        own."""
+        block, n = (states, prio, ub), prio.shape[0]
+        pinned, at = self._staging(), self._pending_n
+        if pinned is not None and at + n <= pinned.shape[0]:
+            self.maybe_push(*(dst[at:at + n].copy_(src).numpy()
+                              for dst, src in zip(pinned.spill, block)))
+        else:       # numpy() of a CPU tensor is a view: copy
+            self.maybe_push(*(x.numpy().copy() if x.device.type == "cpu"
+                              else x.cpu().numpy() for x in block))
+
     def _flush_pending(self):
+        """Write the pending blocks as one run in decreasing priority: the
+        pending entries in the order of a reversed stable argsort, each
+        block's state rows scattered once into the run's array."""
         if not self._pending:
             return
-        states = np.concatenate([p[0] for p in self._pending])
         prio = np.concatenate([p[1] for p in self._pending])
         ub = np.concatenate([p[2] for p in self._pending])
         order = np.argsort(prio, kind="stable")[::-1]  # decreasing priority
+        where = np.empty(len(order), np.int64)         # entry -> run row
+        where[order] = np.arange(len(order))
+        states = np.empty((len(order), self.state_width),
+                          np.result_type(*(p[0] for p in self._pending)))
+        at = 0
+        for block, _, _ in self._pending:
+            states[where[at:at + len(block)]] = block
+            at += len(block)
         self.runs.append(_Run(
-            np.ascontiguousarray(states[order]), prio[order], ub[order],
+            states, prio[order], ub[order],
             self.backend, self.spill_dir, self._run_id, self.buffer_size,
             obs=self.obs))
         self._run_id += 1
@@ -260,8 +356,8 @@ class VirtualPriorityQueue:
         ``total_late_pruned`` — entries whose upper bound is dominated by
         ``min_ub``.
 
-        Vectorized merge: each round concatenates every live run's buffered
-        block and stably argsorts by descending priority, so the global
+        Vectorized merge: each round concatenates the priorities of every
+        live run's buffered block and stably argsorts them descending, so the global
         order is (priority desc, run index asc, within-run position asc) —
         exactly the order an entry-at-a-time heap merge with run-index
         tie-break produces.  An entry is *safe* to emit when no run's
@@ -276,19 +372,30 @@ class VirtualPriorityQueue:
         Python loop, cursors advance in bulk.
 
         Consumption stops as soon as ``n`` entries survive pruning, leaving
-        later entries (dominated or not) in their runs.
+        later entries (dominated or not) in their runs.  Only the kept
+        entries' state rows are copied, each once from its run's block
+        into the output: with ``pinned_rows``, the page-locked refill rows
+        where ``n`` fits (valid until the next pop; :meth:`upload`), else
+        arrays of their own.
         """
         self._flush_pending()
-        out_s, out_p, out_u = [], [], []
+        pinned = self._staging()
+        self._popped_pinned = 0
+        if pinned is not None and n <= pinned.shape[1]:
+            out_s, out_p, out_u = (t.numpy() for t in pinned.refill)
+        else:
+            out_s = np.empty((max(n, 0), self.state_width), np.int32)
+            out_p = np.empty(max(n, 0), np.int32)
+            out_u = np.empty(max(n, 0), np.int32)
+        got = 0
         need = n
         late_pruned0 = self.total_late_pruned
         live = [r for r in self.runs if not r.exhausted]
         while need > 0 and live:
             blocks = [r.buffered() for r in live]
+            sizes = np.array([len(b[1]) for b in blocks], np.int64)
             prio = np.concatenate([b[1] for b in blocks]).astype(np.int64)
-            run_of = np.concatenate(
-                [np.full(len(b[1]), j, np.int64)
-                 for j, b in enumerate(blocks)])
+            run_of = np.repeat(np.arange(len(live), dtype=np.int64), sizes)
             order = np.argsort(-prio, kind="stable")
 
             bar, rmin = None, None
@@ -322,10 +429,15 @@ class VirtualPriorityQueue:
             self.total_late_pruned += int(stop - kmask.sum())
 
             if len(kept):
-                states = np.concatenate([b[0] for b in blocks])
-                out_s.append(states[kept])
-                out_p.append(prio[kept].astype(np.int32))
-                out_u.append(ub[kept])
+                end = got + len(kept)
+                kept_run = run_of[kept]
+                row = kept - (np.cumsum(sizes) - sizes)[kept_run]
+                for j in np.unique(kept_run):
+                    at = np.flatnonzero(kept_run == j)
+                    out_s[got + at] = blocks[j][0][row[at]]
+                out_p[got:end] = prio[kept]
+                out_u[got:end] = ub[kept]
+                got = end
                 need -= len(kept)
             for j, c in enumerate(np.bincount(run_of[sel],
                                               minlength=len(live))):
@@ -342,19 +454,32 @@ class VirtualPriorityQueue:
                 keep_runs.append(r)
         self.runs = keep_runs
         self._m_late_pruned.inc(self.total_late_pruned - late_pruned0)
-        if not out_p:
-            return (np.zeros((0, self.state_width), np.int32),
-                    np.zeros((0,), np.int32), np.zeros((0,), np.int32))
-        out = (np.concatenate(out_s).astype(np.int32),
-               np.concatenate(out_p),
-               np.concatenate(out_u).astype(np.int32))
+        out = (out_s[:got], out_p[:got], out_u[:got])
+        if pinned is not None and n <= pinned.shape[1]:
+            self._popped_pinned = got
         self._m_refill_bytes.inc(sum(a.nbytes for a in out))
         return out
 
+    def upload(self, chunk: tuple, device) -> List[torch.Tensor]:
+        """``chunk``, what :meth:`pop_chunk` last returned, as tensors on
+        ``device``: from the page-locked rows it was popped into, each copy
+        blocking so that the next pop may write them again, or else from
+        its own arrays."""
+        n = len(chunk[1])
+        if n and n == self._popped_pinned:
+            return [t[:n].to(device, copy=True) for t in self._pinned.refill]
+        return [torch.from_numpy(a).to(device) for a in chunk]
+
     def close(self):
+        """Drop the runs and the pending entries (some of them views of
+        the page-locked rows, which go back to the process here)."""
         for r in self.runs:
             r.close()
         self.runs = []
+        self._pending, self._pending_n = [], 0
+        if self._pinned is not None:
+            _give_back(self._pinned)
+            self._pinned = None
         if self._own_dir and self.spill_dir and os.path.isdir(self.spill_dir):
             shutil.rmtree(self.spill_dir, ignore_errors=True)
 
@@ -413,8 +538,9 @@ class VirtualPriorityQueue:
 
     @classmethod
     def restore(cls, manifest: dict, src_dir: str,
-                spill_dir: Optional[str] = None,
-                obs=None) -> "VirtualPriorityQueue":
+                spill_dir: Optional[str] = None, obs=None,
+                pinned_rows: Optional[Tuple[int, int]] = None
+                ) -> "VirtualPriorityQueue":
         """Rebuild a queue from :meth:`snapshot` output.
 
         Disk runs are re-linked from the checkpoint into the *live* spill
@@ -427,7 +553,7 @@ class VirtualPriorityQueue:
                   backend=manifest["backend"], spill_dir=spill_dir,
                   buffer_size=int(manifest["buffer_size"]),
                   run_flush_size=int(manifest["run_flush_size"]),
-                  obs=obs)
+                  obs=obs, pinned_rows=pinned_rows)
         vpq.total_spilled = int(manifest["total_spilled"])
         vpq.total_late_pruned = int(manifest["total_late_pruned"])
         vpq._run_id = int(manifest["run_id"])

@@ -1,15 +1,24 @@
-"""Maximum-WEIGHT clique discovery — written against the paper's succinct
-per-subgraph API (:func:`repro_torch.core.api.from_pointwise`), the Python
-analog of the paper's Listing 1; the port of ``repro.core.weighted_clique``.
+"""Maximum-WEIGHT clique discovery; the port of
+``repro.core.weighted_clique``, in two forms with the same numbers:
 
-Demonstrates the Table-1 generality claim: a new top-k computation is four
-scalar functions (expandable / priority / relevant+result / dominated); the
-engine, batching, pruning, and VPQ come for free.
+* the served one, fused over the batch as :mod:`repro_torch.core.clique`
+  is, and built there (``make_clique_computation(..., weights=...)``): the
+  children scored by the weighted AND-popcount on the card's 1-bit kernel
+  and built by one launch of the weighted child rows;
+* the pointwise one (:func:`make_pointwise_weighted_clique_computation`),
+  written against the paper's succinct per-subgraph API
+  (:func:`repro_torch.core.api.from_pointwise`), the Python analog of the
+  paper's Listing 1, as the reference writes it:
+  the plain path the CPU tests hold the fused one to.  It demonstrates the
+  Table-1 generality claim: a new top-k computation is four scalar
+  functions (expandable / priority / relevant+result / dominated); the
+  engine, batching, pruning, and VPQ come for free.  It has no kernel and
+  cannot serve a large graph (every score is a weighted sum over N bits).
 
 State layout (``S = 2W + 2``): V bitset, P bitset, weight(V), weight(P) —
 the dominance bound ``w(V) + w(P)`` generalizes the CP cardinality bound.
 Weights are positive integers.  Words, weights and keys are ``int32``, as
-in the reference's states.  The workload has no kernel.
+in the reference's states.
 """
 from __future__ import annotations
 
@@ -17,7 +26,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from . import bitset
+from . import bitset, clique
 from .api import chunk_size, from_pointwise, resolve_device
 from .graph import GraphStore
 
@@ -25,7 +34,17 @@ from .graph import GraphStore
 def make_weighted_clique_computation(graph: GraphStore, weights: np.ndarray,
                                      device=None):
     """The weighted-clique computation on ``device`` (default ``cuda``;
-    raises when no CUDA device is present and ``device`` is not given)."""
+    raises when no CUDA device is present and ``device`` is not given),
+    fused as clique's is."""
+    return clique.make_clique_computation(graph, device=device,
+                                          weights=weights)
+
+
+def make_pointwise_weighted_clique_computation(graph: GraphStore,
+                                               weights: np.ndarray,
+                                               device=None):
+    """The same computation in the pointwise API, the plain form the fused
+    one is held to."""
     device = resolve_device(device)
     n = graph.n
     w = bitset.num_words(n)

@@ -417,8 +417,8 @@ class ShardedEngine:
                 with self._span("engine.spill"):
                     for i, (vpq, w) in enumerate(zip(st.vpqs, out[:, 4])):
                         if w:
-                            vpq.maybe_push(*(a[i, :w].cpu().numpy()
-                                             for a in self._acc))
+                            vpq.push_from_device(*(a[i, :w]
+                                                   for a in self._acc))
             self._refill_rebalance(st, out[:, 5].copy())
         self._after_step(st, n, syncs, stats, t0)
         return st

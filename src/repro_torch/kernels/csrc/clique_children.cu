@@ -35,6 +35,15 @@
 // output.  A valid row whose parent or action lies outside its table traps
 // (the launch's error shows at the next synchronize) rather than reading
 // outside it.
+//
+// The weighted form (a non-null `weights`, int32 [N]: the maximum-weight
+// clique computation of repro_torch/core/clique.py, whose state holds w(V)
+// and w(P) where the unweighted holds |V| and |P|) shares the row walk and
+// the zero fill as the template's kWeighted: w(V) + w(a) at 2W, and at
+// 2W + 1 the weights of the new P's set bits below N, each lane summing
+// its words' bits (__ffs, a weight read a bit, from L2: the weights are
+// 185 KB at N = 46,336) before the same __reduce_add_sync.  Its bound is
+// the same write.
 #include <climits>
 #include <cstdint>
 
@@ -45,12 +54,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;    // rows a block
 
+template <bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 clique_children_kernel(const uint32_t* __restrict__ states,
                        const int64_t* __restrict__ parent,
                        const int64_t* __restrict__ action,
                        const bool* __restrict__ valid,
                        const uint32_t* __restrict__ ext,
+                       const int32_t* __restrict__ weights,
                        uint32_t* __restrict__ out, int64_t M, int64_t B,
                        int64_t N, int W) {
   const int lane = threadIdx.x & 31;
@@ -80,16 +91,26 @@ clique_children_kernel(const uint32_t* __restrict__ states,
   const uint32_t* e = ext + a * W;
   const int bit_word = static_cast<int>(a >> 5);
   const uint32_t bit = 1u << (a & 31);
-  int count = 0;
+  int count = 0;        // |new P|, or its weight
   for (int j = lane; j < W; j += 32) {
     dst[j] = __ldg(src + j) | (j == bit_word ? bit : 0u);
     const uint32_t pw = __ldg(src + W + j) & __ldg(e + j);
     dst[W + j] = pw;
-    count += __popc(pw);
+    if (kWeighted) {
+      // bits at or above N (the last word's padding) weigh nothing
+      const int64_t left = N - 32 * static_cast<int64_t>(j);
+      uint32_t rest = left >= 32 ? pw
+                                 : left > 0 ? pw & ((1u << left) - 1u) : 0u;
+      for (; rest; rest &= rest - 1)
+        count += __ldg(weights + 32 * j + __ffs(rest) - 1);
+    } else {
+      count += __popc(pw);
+    }
   }
   count = __reduce_add_sync(0xffffffffu, count);
   if (lane == 0) {
-    dst[2 * W] = __ldg(src + 2 * W) + 1u;
+    dst[2 * W] = __ldg(src + 2 * W) +
+                 (kWeighted ? static_cast<uint32_t>(__ldg(weights + a)) : 1u);
     dst[2 * W + 1] = static_cast<uint32_t>(count);
   }
 }
@@ -97,23 +118,27 @@ clique_children_kernel(const uint32_t* __restrict__ states,
 }  // namespace
 
 // states [B, S], parent and action [M] int64, valid [M] bool, ext [N, W],
-// out [M, S]; S = 2W + 2, every tensor contiguous.  Launches on `stream`
-// and returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue
-// for a shape the grid cannot hold.
+// weights [N] int32 or null (the unweighted rows), out [M, S]; S = 2W + 2,
+// every tensor contiguous.  Launches on `stream` and returns
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a shape
+// the grid cannot hold.
 extern "C" int clique_children_launch(const void* states, const void* parent,
                                       const void* action, const void* valid,
-                                      const void* ext, void* out, long long M,
-                                      long long B, long long N, int W,
-                                      void* stream) {
+                                      const void* ext, const void* weights,
+                                      void* out, long long M, long long B,
+                                      long long N, int W, void* stream) {
   const long long blocks = (M + kWarps - 1) / kWarps;
   if (M < 1 || B < 1 || N < 1 || W < 1 || blocks > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  clique_children_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = weights != nullptr ? clique_children_kernel<true>
+                                         : clique_children_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(states),
       static_cast<const int64_t*>(parent), static_cast<const int64_t*>(action),
       static_cast<const bool*>(valid), static_cast<const uint32_t*>(ext),
-      static_cast<uint32_t*>(out), M, B, N, W);
+      static_cast<const int32_t*>(weights), static_cast<uint32_t*>(out), M, B,
+      N, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -259,9 +259,11 @@ class DiscoveryRequest:
 
         if self.workload == "weighted-clique":
             if self.use_pallas:
-                # the weighted CP bound is a *weighted* popcount, which the
-                # masked-intersection kernel does not compute — reject
-                # explicitly rather than silently running the reference path
+                # the reference's rejection and message, kept: its Pallas
+                # kernel has no weighted form.  Here the computation takes
+                # the card's kernels (the weighted popcount over weight
+                # planes) by its tensors' device, as clique does, whatever
+                # use_pallas says
                 raise ValidationError(
                     "use_pallas is not supported for weighted-clique "
                     "(needs a weighted-popcount kernel variant; "

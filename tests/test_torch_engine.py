@@ -18,7 +18,9 @@ from repro_torch.core import engine
 from repro_torch.core.api import NEG
 from repro_torch.core.clique import make_clique_computation
 from repro_torch.core.iso import build_iso_index, make_iso_computation
-from repro_torch.core.weighted_clique import make_weighted_clique_computation
+from repro_torch.core.weighted_clique import (
+    make_pointwise_weighted_clique_computation,
+    make_weighted_clique_computation)
 from repro_torch.data import synthetic_graphs as gen
 
 torch.set_num_threads(2)
@@ -235,15 +237,18 @@ def _iso_computation():
 
 
 def test_only_the_clique_computation_builds_its_child_rows_itself():
-    """The clique computation carries materialize_selected; iso and the
-    pointwise computations (weighted clique among them) keep the engine's
-    generic gather, materialize and zeroing."""
+    """The clique computation carries materialize_selected, and so does
+    the weighted clique's fused form, which clique.py builds; iso and the
+    pointwise computations (weighted clique's pointwise form among them)
+    keep the engine's generic gather, materialize and zeroing."""
     g = gen.densifying_graph(40, 60, 0)
-    assert make_clique_computation(g, device="cpu").materialize_selected \
-        is not None
-    weighted = make_weighted_clique_computation(
-        g, np.arange(1, g.n + 1), device="cpu")
-    for comp in (_iso_computation(), weighted):
+    weights = np.arange(1, g.n + 1)
+    for comp in (make_clique_computation(g, device="cpu"),
+                 make_weighted_clique_computation(g, weights, device="cpu")):
+        assert comp.materialize_selected is not None, comp.name
+    pointwise = make_pointwise_weighted_clique_computation(g, weights,
+                                                           device="cpu")
+    for comp in (_iso_computation(), pointwise):
         assert comp.materialize_selected is None, comp.name
 
 

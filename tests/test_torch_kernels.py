@@ -214,8 +214,8 @@ class _OnCard(torch.Tensor):
 
 def test_clique_children_hands_the_kernel_its_operands(monkeypatch):
     """On a CUDA tensor the wrapper makes one C call: the five operands'
-    pointers in order, the output's, then M, B, N and W; the output is
-    [M, S] int32 and the call counts as a launch."""
+    pointers in order, a null weights pointer, the output's, then M, B, N
+    and W; the output is [M, S] int32 and the call counts as a launch."""
     launched = []
     monkeypatch.setattr(cc, "launches", 0)
     monkeypatch.setattr(cc.build, "launch",
@@ -238,8 +238,8 @@ def test_clique_children_hands_the_kernel_its_operands(monkeypatch):
     assert name == "clique_children" and cc.launches == 1
     assert out is made[0] and out.shape == (7, 8) and \
         out.dtype == torch.int32
-    assert args == (*(t.data_ptr() for t in operands), out.data_ptr(), 7, 5,
-                    100, 3, 0)
+    assert args == (*(t.data_ptr() for t in operands), None, out.data_ptr(),
+                    7, 5, 100, 3, 0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "width", "mask_shape", "device"])
